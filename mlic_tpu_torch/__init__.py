@@ -1,0 +1,17 @@
+"""MLIC++ in PyTorch for one NVIDIA H100: the device-codec serving path.
+
+A port of the ``device`` backend of ``mlic_tpu`` (stream format v4:
+analyze -> context encode pass -> interleaved rANS encode, and the matching
+on-device decode) to PyTorch, with hand-written CUDA kernels for the row
+select, the analytic CDF evaluator and the two rANS scans
+(``mlic_tpu_torch/csrc``).  Every kernel has a plain PyTorch twin in the
+same module; the twin runs for CPU tensors, the kernel for CUDA tensors.
+
+This package imports torch, numpy and scipy only -- never jax/flax or the
+``mlic_tpu`` package.  Entry points default to ``device="cuda"`` and raise
+when CUDA is missing; pass ``device="cpu"`` explicitly for the CPU path.
+
+Layout: public model methods and the codec take and return NHWC arrays
+(images ``[B,H,W,3]``; symbol/index arrays raveled in NHWC order, which is
+the stream's position order).  The ``nn.Module``s inside are NCHW.
+"""

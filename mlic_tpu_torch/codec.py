@@ -1,0 +1,236 @@
+"""The codec: the device backend of ``mlic_tpu/codec.py``, format v4.
+
+``compress`` runs analyze, the encode pass and the on-device rANS encode
+(z section by integer-row gathers, y phases by the analytic Gaussian CDF),
+then assembles one stream per image.  ``decompress`` parses the streams
+and runs the format-v4 device decode.  Both rANS directions run on the
+device; the host only parses and assembles bytes.
+
+``update`` builds the tables: the Gaussian row parameters, the integer
+table generated from them on the codec's device, and the factorized
+prior's rows, combined so one stream carries z and y.  The table must be
+rANS-valid and pass the decode- and encode-shaped self-checks, else
+``update`` raises with the count of entries that differ -- there is no
+host-table fallback.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from mlic_tpu_torch.device import resolve_device
+from mlic_tpu_torch.entropy import parametric
+from mlic_tpu_torch.entropy.cdf import get_scale_table
+from mlic_tpu_torch.entropy.device_rans import (
+    _PAD_FREQM1,
+    _PAD_START,
+    analytic_start_freq,
+    compact_streams_global,
+    gather_start_freq,
+    parametric_device_tables,
+    phase_order,
+    rans_encode_scan,
+    u16_bits,
+)
+from mlic_tpu_torch.entropy.models import entropy_bottleneck_tables
+from mlic_tpu_torch.entropy.stream import (
+    assemble_streams,
+    parse_global,
+    stream_is_unified,
+)
+from mlic_tpu_torch.models.mlicpp import MLICPlusPlus
+
+MAX_LANES = 1024   # one decode block per image, one thread per lane
+
+
+def encode_inputs_v4(sym32, idx, z_flat, tables: dict, n_lanes: int,
+                     n_phases: int, z_rows_base: int):
+    """The encode scan's inputs for one batch, format v4 (codec.py:144).
+
+    sym32/idx: int32 [B, total] y symbols and scale indexes (``n_phases``
+    equal phases, NHWC raveled); z_flat: int32 [B, zh*zw*N] hyper-latent
+    symbols, coded first with the factorized-prior rows at ids
+    ``z_rows_base + channel``.  Start/frequency prep runs in the [B, n]
+    layout (z by gathers, y by K1 + K2), then every phase is laid out in
+    position order.  Returns (start16, freqm1 int16 [S, B*n_lanes],
+    esc bool, sym int32 [S, B*n_lanes])."""
+    b, n_z = z_flat.shape
+    n_ch = tables["cdf_rows"].shape[0] - z_rows_base
+    z_rows = z_rows_base + torch.arange(n_z, dtype=torch.int32,
+                                        device=z_flat.device) % n_ch
+    st_z, fm_z, esc_z = gather_start_freq(z_flat, z_rows[None].expand(b, n_z),
+                                          tables)
+    st_y, fm_y, esc_y = analytic_start_freq(sym32, idx, tables["row_params"])
+    n_per = sym32.shape[1] // n_phases
+
+    def parts(az, ay, pad_value):
+        return torch.cat([phase_order(az, n_lanes, pad_value)] + [
+            phase_order(ay[:, k * n_per:(k + 1) * n_per], n_lanes, pad_value)
+            for k in range(n_phases)], 0)
+
+    return (u16_bits(parts(st_z, st_y, _PAD_START)),
+            u16_bits(parts(fm_z, fm_y, _PAD_FREQM1)),
+            parts(esc_z, esc_y, False), parts(z_flat, sym32, 0))
+
+
+def encode_rans_v4(sym32, idx, z_flat, tables: dict, n_lanes: int,
+                   n_phases: int, z_rows_base: int) -> dict:
+    """On-device rANS encode of one batch, format v4: the inputs above,
+    one encode scan over the whole stream (K3), then the compaction."""
+    start16, freqm1, esc, sym = encode_inputs_v4(
+        sym32, idx, z_flat, tables, n_lanes, n_phases, z_rows_base)
+    x, words, emits = rans_encode_scan(start16, freqm1)
+    return compact_streams_global(x, words, emits, esc, sym,
+                                  z_flat.shape[0])
+
+
+class Codec:
+    """compress()/decompress() around an ``MLICPlusPlus`` with weights.
+
+    ``n_lanes``: rANS lanes per image, a power of two <= 1024 (the stream
+    header carries it).  ``device``: None means CUDA."""
+
+    def __init__(self, model: MLICPlusPlus, n_lanes: int = 512, device=None):
+        self.device = resolve_device(device)
+        nl = int(n_lanes)
+        if not 1 <= nl <= MAX_LANES or nl & (nl - 1):
+            raise ValueError(
+                f"n_lanes must be a power of two in [1, {MAX_LANES}], got {nl}")
+        self.n_lanes = nl
+        self.model = model.to(self.device).eval()
+        self.tables = None
+        self.n_steps = 0
+        self.z_rows_base = 0
+        self.z_steps_row = 0
+
+    @torch.no_grad()
+    def update(self, scale_table: np.ndarray | None = None) -> None:
+        """Build and check the tables (codec.py:419, 519, 440)."""
+        st = get_scale_table() if scale_table is None else scale_table
+        params, lengths, offsets = parametric.gaussian_row_params(st)
+        params_t = torch.as_tensor(params, device=self.device)
+        table = parametric.generate_tables(params_t, lengths)
+        checks = {
+            "validate_tables (rows)": parametric.validate_tables(
+                table, lengths),
+            "self_check (entries)": parametric.self_check(
+                params_t, table, lengths, self.n_lanes),
+            "self_check_encode (entries)": parametric.self_check_encode(
+                params_t, table, lengths),
+        }
+        failed = {k: v for k, v in checks.items() if v}
+        if failed:
+            raise RuntimeError(f"parametric CDF table rejected: {failed} "
+                               "differ")
+        eb_cdfs, eb_len, eb_off, _ = entropy_bottleneck_tables(
+            self.model.entropy_bottleneck.numpy_params())
+        n_g = table.shape[0]
+        width = max(table.shape[1], eb_cdfs.shape[1])
+        width = -(-width // 64) * 64
+        rows = np.zeros((n_g + eb_cdfs.shape[0], width), np.int32)
+        rows[:n_g, :table.shape[1]] = table
+        rows[n_g:, :eb_cdfs.shape[1]] = eb_cdfs
+        self.tables = parametric_device_tables(
+            params, np.concatenate([lengths, eb_len]),
+            np.concatenate([offsets, eb_off]), rows, self.device)
+        self.n_steps = parametric.bisect_steps(lengths)
+        self.z_rows_base = n_g
+        self.z_steps_row = int(np.ceil(np.log2(width)))
+
+    def _stage(self, timings, name: str, t: float) -> float:
+        """With a ``timings`` dict, wait for the device and record the ms
+        since ``t`` under ``name``; returns the start of the next stage."""
+        if timings is None:
+            return t
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        timings[name] = (now - t) * 1e3
+        return now
+
+    @torch.no_grad()
+    def compress(self, x, timings: dict | None = None) -> dict:
+        """x: [B,H,W,3] uint8, or float in [0,1]; H, W multiples of 64.
+        Returns {"strings": [y_strings, z_strings], "shape": (h/4... z dims),
+        "y_hat": [B,h,w,M], "cost_time": s}; the z strings are empty in
+        format v4 (z travels in the y stream).  A ``timings`` dict receives
+        the host-clock ms of each stage, each ended by a device
+        synchronize: analyze, encode_pass, rans_encode, assemble."""
+        t0 = time.perf_counter()
+        if self.tables is None:
+            self.update()
+        t = time.perf_counter()
+        x = torch.as_tensor(x).to(self.device)
+        if x.dim() != 4 or x.shape[3] != 3 or x.shape[1] % 64 \
+                or x.shape[2] % 64:
+            raise ValueError(f"compress takes [B, H, W, 3] images with H and "
+                             f"W multiples of 64, got {tuple(x.shape)}")
+        if x.dtype != torch.uint8:
+            x = x.float()
+        y, z_symbols = self.model.analyze(x)
+        t = self._stage(timings, "analyze", t)
+        y_hat, sym32, idx = self.model.codec_encode_pass(y, z_symbols)
+        t = self._stage(timings, "encode_pass", t)
+        b, zh, zw, _ = z_symbols.shape
+        comp = encode_rans_v4(sym32, idx, z_symbols.reshape(b, -1),
+                              self.tables, self.n_lanes,
+                              2 * self.model.cfg.slice_num, self.z_rows_base)
+        t = self._stage(timings, "rans_encode", t)
+        streams = assemble_streams(comp, self.n_lanes)
+        self._stage(timings, "assemble", t)
+        return {"strings": [streams, [b""] * b], "shape": (zh, zw),
+                "y_hat": y_hat, "cost_time": time.perf_counter() - t0}
+
+    @torch.no_grad()
+    def decompress(self, strings, shape, timings: dict | None = None) -> dict:
+        """strings: [y_strings, z_strings] from ``compress``; shape: the z
+        spatial dims.  Returns {"x_hat", "y_hat", "cost_time"}, NHWC.  A
+        ``timings`` dict receives the ms of each stage, as in ``compress``:
+        parse, entropy_decode, synthesize."""
+        t0 = time.perf_counter()
+        if self.tables is None:
+            self.update()
+        t = time.perf_counter()
+        words, img_begin, escs, esc_begin = [], [], [], []
+        n_words = n_esc = 0
+        for s in strings[0]:
+            if not stream_is_unified(s):
+                raise ValueError("not a format-v4 stream")
+            lanes, w, e = parse_global(s)
+            if lanes != self.n_lanes:
+                raise ValueError(f"stream has {lanes} lanes, codec built "
+                                 f"for {self.n_lanes}")
+            if len(w) < 2 * lanes:
+                raise ValueError(f"stream holds {len(w)} words, fewer than "
+                                 f"the {2 * lanes} lane states")
+            img_begin.append(n_words)
+            esc_begin.append(n_esc)
+            words.append(w)
+            escs.append(e)
+            n_words += len(w)
+            n_esc += len(e)
+        dev = self.device
+
+        def i32(a):
+            return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+
+        words_t = torch.from_numpy(
+            np.concatenate(words).view(np.int16)).to(dev)
+        esc_t = i32(np.concatenate(escs) if n_esc else np.zeros(1))
+        zh, zw = shape
+        img_begin_t, esc_begin_t = i32(img_begin), i32(esc_begin)
+        t = self._stage(timings, "parse", t)
+        y_hat = self.model.codec_device_pass_v4(
+            int(zh), int(zw), words_t, img_begin_t, self.tables,
+            self.n_lanes, self.n_steps, self.z_steps_row, self.z_rows_base,
+            esc_t, esc_begin_t)
+        t = self._stage(timings, "entropy_decode", t)
+        x_hat = self.model.synthesize(y_hat)
+        self._stage(timings, "synthesize", t)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return {"x_hat": x_hat, "y_hat": y_hat,
+                "cost_time": time.perf_counter() - t0}

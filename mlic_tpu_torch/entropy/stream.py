@@ -1,0 +1,79 @@
+"""The format-v3/v4 stream container (the port's own copy of
+``mlic_tpu/entropy/rans/coder.py:375-479`` and of the per-image assembly in
+``mlic_tpu/codec.py:709-765``).
+
+Byte layout, little-endian: uint32 (n_lanes | flags) | uint32 n_words |
+uint32 n_escapes | uint16 words[n_words] | pad to 4 B | int32
+esc_values[n_escapes].  ``words`` = 2*n_lanes state words ([hi, lo] per
+lane) then the renorm words in (step-major, lane-minor) consumption order.
+Bit 31 marks the global emission order (v3); bit 30 additionally marks
+format v4, whose leading phases code the hyper-latent z inline.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+_V3_FLAG = np.uint32(1 << 31)
+_V4_FLAG = np.uint32(1 << 30)
+MAX_LANES = 4096
+
+
+def stream_lanes(stream: bytes) -> int:
+    """Lane count from the header; raises ``ValueError`` unless it is a
+    power of two in [1, 4096]."""
+    if len(stream) < 4:
+        raise ValueError(
+            f"stream too short for a lane-count header ({len(stream)} B)")
+    head = int(np.frombuffer(stream[:4], dtype=np.uint32)[0])
+    lanes = head & ~int(_V3_FLAG | _V4_FLAG)
+    if not 1 <= lanes <= MAX_LANES or lanes & (lanes - 1):
+        raise ValueError(f"implausible lane count {lanes} in stream header")
+    return lanes
+
+
+def stream_is_unified(stream: bytes) -> bool:
+    """True if the stream is format v4 (hyper-latent coded inline)."""
+    if len(stream) < 4:
+        return False
+    return bool(np.frombuffer(stream[:4], dtype=np.uint32)[0] & _V4_FLAG)
+
+
+def parse_global(stream: bytes):
+    """-> (n_lanes, words uint16 [n_words], esc_values int32 [n_escapes])."""
+    head = np.frombuffer(stream[:12], dtype=np.uint32)
+    if len(head) < 3 or not head[0] & _V3_FLAG:
+        raise ValueError("not a format-v3/v4 stream")
+    n_lanes = int(head[0] & ~(_V3_FLAG | _V4_FLAG))
+    n_words, n_esc = int(head[1]), int(head[2])
+    off = 12
+    words = np.frombuffer(stream[off:off + 2 * n_words], dtype=np.uint16)
+    off += 2 * n_words
+    if off % 4:
+        off += 2
+    esc = np.frombuffer(stream[off:off + 4 * n_esc], dtype=np.int32)
+    if len(words) != n_words or len(esc) != n_esc:
+        raise ValueError("truncated stream")
+    return n_lanes, words, esc
+
+
+def assemble_streams(comp: dict, n_lanes: int) -> list:
+    """Per-image format-v4 streams from
+    ``device_rans.compact_streams_global``'s device arrays: one copy of the
+    counts, one of the used word and escape prefixes."""
+    img_n = comp["img_n"].cpu().numpy().astype(np.int64)
+    ecount = comp["ecount"].cpu().numpy().astype(np.int64)
+    buf = comp["buf"][:int(img_n.sum())].cpu().numpy().view(np.uint16)
+    ebuf = comp["ebuf"].cpu().numpy().astype(np.int32)
+    flags = _V3_FLAG | _V4_FLAG
+    wb = np.concatenate([[0], np.cumsum(img_n)])
+    eb = np.concatenate([[0], np.cumsum(ecount)])
+    streams = []
+    for b in range(len(img_n)):
+        header = np.asarray([np.uint32(n_lanes) | flags, img_n[b], ecount[b]],
+                            np.uint32).tobytes()
+        body = buf[wb[b]:wb[b + 1]].tobytes()
+        if len(body) % 4:
+            body += b"\x00\x00"
+        streams.append(header + body + ebuf[eb[b]:eb[b + 1]].tobytes())
+    return streams

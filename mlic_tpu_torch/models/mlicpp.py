@@ -1,0 +1,262 @@
+"""MLIC++ codec model, PyTorch (port of ``mlic_tpu/models/mlicpp.py``).
+
+The coding halves of ``MLICPlusPlus`` for fixed-rate configurations with
+the full-width decoder: ``analyze`` (g_a, h_a, z rounding), the encode pass
+(``codec_encode_pass``: h_s, then per slice an anchor and a non-anchor
+checkerboard phase through the channel, global and local contexts) and the
+format-v4 device decode (``codec_device_pass_v4``: z decoded from the
+stream by integer-row bisection, then the same slice loop with each phase's
+symbols decoded on the device).
+
+Encode and decode run ONE slice loop (``_slices``) that differs only in how
+a phase obtains its integer symbols, so both directions call the same
+torch functions on the same shapes and layouts: that is what makes the
+entropy parameters, and hence the round trip, bit-exact.
+
+Methods take and return NHWC arrays, as the JAX package's do; the modules
+inside are NCHW.  Module names follow the flax tree (``local_0``,
+``chctx_1``, ...), so ``weights.from_flax`` maps parameters by path.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from mlic_tpu_torch.entropy.cdf import get_scale_table
+from mlic_tpu_torch.entropy.device_rans import make_decoder, phase_order
+from mlic_tpu_torch.entropy.models import EntropyBottleneck, build_indexes
+from mlic_tpu_torch.models.config import ModelConfig
+from mlic_tpu_torch.models.context import (
+    ChannelContext,
+    EntropyParameters,
+    LatentResidualPrediction,
+    LinearGlobalInterContext,
+    LinearGlobalIntraContext,
+    LocalContext,
+)
+from mlic_tpu_torch.models.transforms import (
+    AnalysisTransform,
+    HyperAnalysis,
+    HyperSynthesis,
+    SynthesisTransform,
+)
+from mlic_tpu_torch.ops.math import (
+    ckbd_anchor,
+    ckbd_anchor_squeeze,
+    ckbd_anchor_unsqueeze,
+    ckbd_nonanchor,
+    ckbd_nonanchor_squeeze,
+    ckbd_nonanchor_unsqueeze,
+)
+from mlic_tpu_torch.ops.select_rows import select_rows
+
+_TRANSFORM_DTYPES = {
+    "float32": None,
+    "bfloat16": torch.bfloat16,          # GDN in f32 with casts
+}
+
+
+def to_nchw(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(0, 3, 1, 2).contiguous()
+
+
+def to_nhwc(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(0, 2, 3, 1).contiguous()
+
+
+def nhwc_flat(t: torch.Tensor) -> torch.Tensor:
+    """[B,C,H,W] -> [B, H*W*C] in NHWC ravel order (the stream's order)."""
+    return t.permute(0, 2, 3, 1).reshape(t.shape[0], -1)
+
+
+class MLICPlusPlus(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.vbr or cfg.small_decoder or cfg.old_synthesis:
+            raise NotImplementedError(
+                f"{cfg.name}: the port covers fixed-rate, full-decoder "
+                "configurations only")
+        self.cfg = cfg
+        N, M, S, C = cfg.N, cfg.M, cfg.slice_num, cfg.slice_ch
+        dw = cfg.depthwise
+        tdt = _TRANSFORM_DTYPES[cfg.transform_dtype]
+        self.g_a = AnalysisTransform(N, M, dw, tdt)
+        self.h_a = HyperAnalysis(M, N, dw, tdt)
+        self.g_s = SynthesisTransform(N, M, dw, tdt)
+        self.h_s = HyperSynthesis(M, N, dw)     # f32: feeds the entropy path
+        self.entropy_bottleneck = EntropyBottleneck(N)
+        for i in range(S):
+            self.add_module(f"local_{i}",
+                            LocalContext(C, window_size=cfg.context_window))
+        for i in range(1, S):
+            self.add_module(f"chctx_{i}", ChannelContext(C * i, C, (192, 128),
+                                                         dw))
+            self.add_module(f"ginter_{i}", LinearGlobalInterContext(
+                C * i, C * 2, max(C * i // 32, 1)))
+            self.add_module(f"gintra_{i}", LinearGlobalIntraContext(C))
+        for i in range(S):
+            self.add_module(f"ep_anchor_{i}", EntropyParameters(
+                2 * M if i == 0 else 6 * C + 2 * M, 2 * C))
+            self.add_module(f"ep_nonanchor_{i}", EntropyParameters(
+                2 * C + 2 * M if i == 0 else 10 * C + 2 * M, 2 * C))
+            for branch in ("lrp_anchor", "lrp_nonanchor"):
+                self.add_module(f"{branch}_{i}", LatentResidualPrediction(
+                    M + (i + 1) * C, C, dw))
+        self.register_buffer(
+            "scale_table", torch.tensor(get_scale_table(), dtype=torch.float32),
+            persistent=False)
+
+    def _sub(self, prefix: str, i: int) -> nn.Module:
+        return getattr(self, f"{prefix}_{i}")
+
+    # ---------------- shared per-slice context helpers -----------------
+    def _slice_ctx(self, idx, y_hat_slices):
+        if idx == 0:
+            return None, None
+        prev = torch.cat(y_hat_slices, 1)
+        return self._sub("ginter", idx)(prev), self._sub("chctx", idx)(prev)
+
+    def _anchor_params(self, idx, hyper_params, inter_ctx, channel_ctx):
+        if idx == 0:
+            return self.ep_anchor_0(hyper_params)
+        return self._sub("ep_anchor", idx)(
+            torch.cat([inter_ctx, channel_ctx, hyper_params], 1))
+
+    def _nonanchor_params(self, idx, hyper_params, local_ctx, intra_ctx,
+                          inter_ctx, channel_ctx):
+        parts = ([local_ctx, hyper_params] if idx == 0 else
+                 [local_ctx, intra_ctx, inter_ctx, channel_ctx, hyper_params])
+        return self._sub("ep_nonanchor", idx)(torch.cat(parts, 1))
+
+    def _lrp(self, branch, idx, hyper_means, y_hat_slices, current):
+        return self._sub(branch, idx)(
+            torch.cat([hyper_means] + list(y_hat_slices) + [current], 1))
+
+    def _slices(self, hyper_params, phase):
+        """The slice loop both coding directions share (mlicpp.py:647-672).
+        ``phase(idx, squeeze, unsqueeze, scales, means)`` returns the
+        reconstructed (unsqueezed) half of slice ``idx``."""
+        _, hyper_means = hyper_params.chunk(2, 1)
+        y_hat_slices = []
+        for idx in range(self.cfg.slice_num):
+            inter_ctx, channel_ctx = self._slice_ctx(idx, y_hat_slices)
+            scales_a, means_a = self._anchor_params(
+                idx, hyper_params, inter_ctx, channel_ctx).chunk(2, 1)
+            slice_anchor = phase(idx, ckbd_anchor_squeeze,
+                                 ckbd_anchor_unsqueeze, scales_a, means_a)
+            slice_anchor = slice_anchor + ckbd_anchor(self._lrp(
+                "lrp_anchor", idx, hyper_means, y_hat_slices, slice_anchor))
+            local_ctx = self._sub("local", idx)(slice_anchor)
+            intra_ctx = (self._sub("gintra", idx)(y_hat_slices[-1],
+                                                  slice_anchor)
+                         if idx else None)
+            scales_na, means_na = self._nonanchor_params(
+                idx, hyper_params, local_ctx, intra_ctx, inter_ctx,
+                channel_ctx).chunk(2, 1)
+            slice_nonanchor = phase(idx, ckbd_nonanchor_squeeze,
+                                    ckbd_nonanchor_unsqueeze, scales_na,
+                                    means_na)
+            y_hat_slice = slice_nonanchor + slice_anchor
+            y_hat_slice = y_hat_slice + ckbd_nonanchor(self._lrp(
+                "lrp_nonanchor", idx, hyper_means, y_hat_slices, y_hat_slice))
+            y_hat_slices.append(y_hat_slice)
+        return torch.cat(y_hat_slices, 1)
+
+    # ------------------------- analysis only ---------------------------
+    def analyze(self, x):
+        """x: [B,H,W,3] uint8 or float in [0,1] -> (y [B,h,w,M] f32,
+        z_symbols [B,h/4,w/4,N] int32), NHWC (mlicpp.py:228)."""
+        if x.dtype == torch.uint8:
+            x = x.float() / 255.0
+        y = self.g_a(to_nchw(x.float()))
+        z = self.h_a(y)
+        medians = self.entropy_bottleneck.medians()[None, :, None, None]
+        z_symbols = torch.round(z - medians).to(torch.int32)
+        return to_nhwc(y), to_nhwc(z_symbols)
+
+    def _z_hat(self, z_symbols_nchw):
+        medians = self.entropy_bottleneck.medians()[None, :, None, None]
+        return z_symbols_nchw.float() + medians
+
+    @staticmethod
+    def _phase_recon(symbols, mu_sq):
+        return symbols.float() + mu_sq
+
+    def synthesize(self, y_hat):
+        """g_s on an NHWC latent -> NHWC image."""
+        return to_nhwc(self.g_s(to_nchw(y_hat)))
+
+    # ------------------------- real coding -----------------------------
+    def codec_encode_pass(self, y, z_symbols):
+        """Encode pass (mlicpp.py:607): y [B,h,w,M] and z_symbols NHWC ->
+        (y_hat NHWC, symbols int32 [B, total], indexes int32 [B, total]),
+        the per-phase arrays raveled NHWC and concatenated in coding
+        order."""
+        C = self.cfg.slice_ch
+        y = to_nchw(y)
+        hyper_params = self.h_s(self._z_hat(to_nchw(z_symbols)))
+        syms, idxs = [], []
+
+        def phase(idx, squeeze, unsqueeze, scales, means):
+            sc_sq, mu_sq = squeeze(scales), squeeze(means)
+            indexes = build_indexes(sc_sq, self.scale_table)
+            cand = torch.round(squeeze(y[:, idx * C:(idx + 1) * C]) - mu_sq
+                               ).to(torch.int32)
+            syms.append(nhwc_flat(cand))
+            idxs.append(nhwc_flat(indexes))
+            return unsqueeze(self._phase_recon(cand, mu_sq))
+
+        y_hat = self._slices(hyper_params, phase)
+        return to_nhwc(y_hat), torch.cat(syms, 1), torch.cat(idxs, 1)
+
+    def codec_device_pass_v4(self, zh: int, zw: int, words, img_begin, tables,
+                             n_lanes: int, n_steps: int, z_steps_row: int,
+                             z_rows_base: int, esc_values, esc_begin):
+        """Format-v4 decode (mlicpp.py:496): z from the stream's leading
+        phases by integer-row bisection over ``tables['cdf_rows']`` rows
+        >= ``z_rows_base``, then the y phases parametrically.
+
+        words: int16 (uint16 bits), all images' blocks; img_begin int32 [B];
+        esc_values/esc_begin: the escape side channel.  Returns y_hat
+        [B,h,w,M], NHWC; ``synthesize`` turns it into the image."""
+        N = self.cfg.N
+        b = img_begin.shape[0]
+        dev = words.device
+        init, decode = make_decoder(words, n_steps, esc_values, esc_begin,
+                                    n_lanes)
+        carry = init(img_begin)
+        z_n = zh * zw * N
+        z_rows = z_rows_base + torch.arange(z_n, dtype=torch.int32,
+                                            device=dev) % N
+        ordered = phase_order(z_rows[None].expand(b, z_n), n_lanes,
+                              z_rows_base - 1).contiguous()
+        carry, z_sym = decode(carry, ordered, tables, n_steps_row=z_steps_row)
+        steps = ordered.shape[0]
+        z_sym = (z_sym.reshape(steps, b, n_lanes).permute(1, 0, 2)
+                 .reshape(b, -1)[:, :z_n].reshape(b, zh, zw, N))
+        return to_nhwc(self._device_pass_from_z(to_nchw(z_sym), carry,
+                                                decode, tables, n_lanes))
+
+    def _device_pass_from_z(self, z_symbols, carry, decode, tables,
+                            n_lanes: int):
+        """The y half of the device decode (mlicpp.py:537), NCHW; returns
+        y_hat."""
+        pad_row = tables["row_params"].shape[0] - 1
+        hyper_params = self.h_s(self._z_hat(z_symbols))
+        state = {"carry": carry}
+
+        def phase(idx, squeeze, unsqueeze, scales, means):
+            sc_sq, mu_sq = squeeze(scales), squeeze(means)
+            b, c, h, w2 = mu_sq.shape
+            n_img = c * h * w2
+            ordered = phase_order(nhwc_flat(build_indexes(
+                sc_sq, self.scale_table)), n_lanes, pad_row).contiguous()
+            pre_cols = select_rows(ordered, tables["row_params"])
+            state["carry"], sym = decode(state["carry"], ordered, tables,
+                                         pre_cols=pre_cols)
+            sym = (sym.reshape(-1, b, n_lanes).permute(1, 0, 2)
+                   .reshape(b, -1)[:, :n_img].reshape(b, h, w2, c))
+            return unsqueeze(self._phase_recon(to_nchw(sym), mu_sq))
+
+        return self._slices(hyper_params, phase)

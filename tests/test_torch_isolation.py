@@ -1,0 +1,91 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, its
+entry points default to CUDA and refuse to fall back to the CPU, and its
+kernel wrappers run their plain versions only for CPU tensors."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_BLOCKED_IMPORTS = r"""
+import importlib, pkgutil, sys
+BLOCKED = ("jax", "jaxlib", "flax", "orbax", "mlic_tpu")
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import mlic_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(mlic_tpu_torch.__path__,
+                                               "mlic_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+assert not loaded, loaded
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORTS], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20     # every module was imported
+
+
+def test_entry_points_default_to_cuda():
+    from mlic_tpu_torch.codec import Codec
+    from mlic_tpu_torch.device import resolve_device
+    from mlic_tpu_torch.models.registry import get_model
+
+    assert resolve_device("cpu").type == "cpu"
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Codec(get_model("MLICPP_TINY"))
+
+
+def test_wrappers_take_plain_version_only_on_cpu():
+    from mlic_tpu_torch.entropy import device_rans as dr
+    from mlic_tpu_torch.entropy.parametric import eval_cdf
+    from mlic_tpu_torch.ops import _build
+    from mlic_tpu_torch.ops.select_rows import select_rows
+
+    table = torch.randn(5, 6)
+    row = torch.randint(0, 5, (4, 8), dtype=torch.int32)
+    before = _build.launch_counts()
+    cols = select_rows(row, table)
+    eval_cdf(torch.zeros(3, 8, dtype=torch.int32), *cols[:5, 0])
+    dr.rans_encode_scan(torch.zeros(3, 8, dtype=torch.int16),
+                        torch.full((3, 8), 100, dtype=torch.int16))
+    assert _build.launch_counts() == before       # no kernel launched
+    with pytest.raises(ValueError):
+        select_rows(row.to("meta"), table.to("meta"))
+    with pytest.raises(ValueError, match="n_lanes"):
+        from mlic_tpu_torch.codec import Codec
+        from mlic_tpu_torch.models.registry import get_model
+        Codec(get_model("MLICPP_TINY"), n_lanes=2048, device="cpu")
+
+
+def test_kernel_sources_are_listed():
+    from mlic_tpu_torch.ops import _build
+
+    for k in _build.KERNELS.values():
+        assert (_build.CSRC / k.source).is_file()
+        assert k.library_path().parent == _build.BUILD_DIR
+    assert (_build.CSRC / "cdf.cuh").is_file()
+    # K2 and K4 evaluate the CDF through the one shared header
+    for src in ("eval_cdf.cu", "rans_decode.cu"):
+        assert '#include "cdf.cuh"' in (_build.CSRC / src).read_text()
