@@ -4,36 +4,52 @@
     python3 chip_smoke.py
 
 1. prints the card (``nvidia-smi`` name and power limit);
-2. builds the four CUDA kernels from ``mlic_tpu_torch/csrc`` (one nvcc per
+2. builds the five CUDA kernels from ``mlic_tpu_torch/csrc`` (one nvcc per
    source, in parallel);
-3. serves three requests of MLICPP_S at full width -- seeded random
-   weights, bf16 transforms, batches of 8 seeded 768x512 frames, 512 rANS
-   lanes, stream format v4 -- through ``Codec.update``, ``Codec.compress``
-   and ``Codec.decompress``, asserting that the decoder's y_hat is
-   bit-identical to the encoder's and x_hat == g_s(y_hat), and that every
-   kernel was launched on that path;
+3. path 1, the serving path: three requests of MLICPP_S at full width --
+   seeded random weights, bf16 transforms, batches of 8 seeded 768x512
+   frames, 512 rANS lanes, stream format v4 -- through ``Codec.update``,
+   ``Codec.compress`` and ``Codec.decompress``, asserting that the
+   decoder's y_hat and x_hat are bit-identical to the encoder's, and that
+   K1-K4 were launched on that path (K5 is off there);
 4. times more requests whole and, alternately, by the stages that
    ``Codec.compress``/``decompress`` record (median, min, max of each),
    and profiles one more compress and decompress (device busy time, idle
    share against the median whole time, top ops by device time);
-5. holds every kernel against its plain PyTorch version on the card, on a
-   payload with the codec's shapes and 3% escapes (exact equality), and
-   times kernel, plain version and, for the row select, ``table[row]``;
-6. round-trips at 16 and 1024 lanes, and checks the f32 analysis
+5. path 2, the file-based evaluation path: the same model under the
+   ``bfloat16_mixed`` policy with ``MLIC_FUSED_BLOCKS=1`` through
+   ``mlic_tpu_torch.eval.evaluate_codec`` into a temporary directory --
+   four dead-leaves frames of 512x768 and one cropped to 500x750 (the
+   pad-and-crop path) -- asserting what ``evaluate_codec`` asserts (the
+   decoder's x_hat bit-identical to the encoder's, read back from the
+   file), finite bpp, PSNR and MS-SSIM, 20 launches of K5 per image and
+   launches of K1-K4;
+6. g_a and g_s at the serving size with the fused tail off and on, under
+   ``float32`` and ``bfloat16_mixed``: difference and median times;
+7. holds every kernel against its plain PyTorch version on the card:
+   K1-K4 on a payload with the codec's shapes and 3% escapes (exact
+   equality), K5 at every shape of the path, at a ragged size and at other
+   widths, in f32 and bf16 (within the stated tolerance, and both against
+   a float64 evaluation); times kernel, plain version and, for the row
+   select, ``table[row]``; a K5 launch that cannot run must raise;
+8. round-trips at 16 and 1024 lanes, and checks the f32 analysis
    transform on the card against the CPU on a small input;
-7. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+9. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 
 Exits non-zero, before printing any result, without CUDA or without the
-repository beside it; any failed phase raises.
+repository beside it; any failed phase raises, and no kernel failure is
+caught to carry on without the kernel.
 """
 
 from __future__ import annotations
 
 import functools
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -45,17 +61,29 @@ N_LANES = 512
 N_REQUESTS = 3
 STAGE_REQUESTS = 7
 ESC_SHARE = 0.03
-# Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and
-# f32 operations/s outside the tensor cores.
+EVAL_FRAMES = 4                 # full 512x768 frames on path 2, plus a crop
+EVAL_CROP = (500, 750)
+K5_PER_IMAGE = 20               # 6 in g_a, 7 in g_s at compress and decompress
+FUSED_SWITCH = "MLIC_FUSED_BLOCKS"
+# K5 against its plain version: |k - p| <= tol * (1 + |p|), the tolerances
+# of the same comparison on the JAX side.  f32: the two sum the same
+# products in different orders.  bf16: they round at the same points, so a
+# different sum order moves a result by one bf16 step (2^-8 relative) where
+# a sum lies near a rounding boundary, and a few such steps compound.
+K5_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+# Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32
+# operations/s outside the tensor cores, bf16 operations/s in them.
 HBM_BPS = 3.35e12
 F32_OPS = 67e12
+BF16_OPS = 989e12
 # Operations per CDF evaluation: a dozen float ops around erfcf, which the
 # CUDA math library computes in about 25 more.
 CDF_OPS = 36
 KERNEL_SYMBOLS = {"select_rows": "select_rows_kernel",
                   "eval_cdf": "eval_cdf_kernel",
                   "rans_encode_scan": "rans_encode_kernel",
-                  "rans_decode_phase": "rans_decode_kernel"}
+                  "rans_decode_phase": "rans_decode_kernel",
+                  "fused_block_tail": "fused_block_tail_kernel"}
 
 
 def card_line() -> str:
@@ -104,8 +132,8 @@ def max_abs_err(pairs) -> float:
     return err
 
 
-def bound(nbytes: float, ops: float):
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / F32_OPS * 1e3
+def bound(nbytes: float, ops: float, peak_ops: float = F32_OPS):
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -127,6 +155,9 @@ def serve(codec, frames):
             n = int((enc["y_hat"] != dec["y_hat"]).sum())
             raise AssertionError(f"request {r}: y_hat differs at {n} entries")
         x_hat = dec["x_hat"]
+        if not torch.equal(enc["x_hat"], x_hat):
+            raise AssertionError(f"request {r}: decoder x_hat differs from "
+                                 "the encoder's")
         if tuple(x_hat.shape) != (BATCH, HEIGHT, WIDTH, 3) \
                 or not bool(torch.isfinite(x_hat).all()):
             raise AssertionError(f"request {r}: bad x_hat {tuple(x_hat.shape)}")
@@ -379,6 +410,264 @@ def check_kernels(codec, counts):
     return out
 
 
+def eval_path(state) -> dict:
+    """Path 2: the file-based evaluation entry point at full width, with
+    the fused block tail (K5) in g_a and g_s.  Returns its launch counts."""
+    import torch
+
+    from mlic_tpu_torch.codec import Codec
+    from mlic_tpu_torch.data.folder import dead_leaves_pool
+    from mlic_tpu_torch.eval import evaluate_codec
+    from mlic_tpu_torch.models.registry import get_model
+    from mlic_tpu_torch.ops import _build
+
+    os.environ[FUSED_SWITCH] = "1"
+    model = get_model(MODEL, transform_dtype="bfloat16_mixed")
+    model.load_state_dict(state)
+    codec = Codec(model, n_lanes=N_LANES, device="cuda")
+    codec.update()
+    pool = dead_leaves_pool(EVAL_FRAMES, HEIGHT, SEED, width=WIDTH,
+                            cache_dir="")
+    images = [f.astype(np.float32) / 255.0 for f in pool]
+    images.append(images[0][:EVAL_CROP[0], :EVAL_CROP[1]])
+    lines = []
+    _build.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as save_dir:
+        # raises unless every decoder x_hat, read back from its file, is
+        # bit-identical to the encoder's
+        res = evaluate_codec(codec, images, save_dir, log=lines.append)
+        files = sorted(os.listdir(save_dir))
+    counts = _build.launch_counts()
+    print(json.dumps({"eval_path": {
+        "model": MODEL, "transform_dtype": "bfloat16_mixed",
+        FUSED_SWITCH: "1", "lanes": N_LANES,
+        "images": [list(i.shape) for i in images], "files": files,
+        "note": "seeded random weights: bpp, PSNR and MS-SSIM measure the "
+                "plumbing, not the codec's quality",
+        "per_image": lines, "average": res, "launches": counts}}), flush=True)
+    if res["n_images"] != len(images) or len(files) != len(images):
+        raise AssertionError(f"eval path: {res['n_images']} images, "
+                             f"{len(files)} files for {len(images)} inputs")
+    bad = [k for k in ("bpp", "psnr", "ms_ssim") if not np.isfinite(res[k])]
+    if bad or not res["bpp"] > 0:
+        raise AssertionError(f"eval path: not finite: {bad}, bpp {res['bpp']}")
+    if counts["fused_block_tail"] != K5_PER_IMAGE * len(images):
+        raise AssertionError(
+            f"eval path: K5 launched {counts['fused_block_tail']} times, "
+            f"expected {K5_PER_IMAGE} per image")
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the eval path: {missing}")
+    # the latent too: decoder y_hat == encoder y_hat on a full frame
+    enc = codec.compress(images[0][None])
+    dec = codec.decompress(enc["strings"], enc["shape"])
+    if not (torch.equal(enc["y_hat"], dec["y_hat"])
+            and torch.equal(enc["x_hat"], dec["x_hat"])):
+        raise AssertionError("eval path: decoder y_hat or x_hat differs")
+    os.environ.pop(FUSED_SWITCH)
+    return counts
+
+
+def fused_against_unfused(state, frames):
+    """g_a (through ``analyze``) and g_s (through ``synthesize``) on one
+    serving batch with the fused tail off and on: the difference of y and
+    of x_hat against the output's scale, and the median time of each, the
+    two settings taken in turns (off, on, on, off)."""
+    import torch
+
+    from mlic_tpu_torch.models.registry import get_model
+    x = torch.from_numpy(frames).cuda()
+    rows = {}
+    for policy, tol in (("float32", 1e-5), ("bfloat16_mixed", 5e-2)):
+        model = get_model(MODEL, transform_dtype=policy)
+        model.load_state_dict(state)
+        model.cuda().eval()
+        outs, ms = {}, {}
+        with torch.no_grad():
+            for switch in ("0", "1", "1", "0") * 3:
+                os.environ[FUSED_SWITCH] = switch
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y, _ = model.analyze(x)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                x_hat = model.synthesize(torch.round(outs.get("y0", y)))
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                outs.setdefault("y0", y)       # one latent feeds every g_s
+                outs[switch] = (y, x_hat)
+                ms.setdefault(switch, []).append(((t1 - t0) * 1e3,
+                                                  (t2 - t1) * 1e3))
+        os.environ.pop(FUSED_SWITCH)
+        row = {"tolerance_of_scale": tol}
+        for i, name in enumerate(("y", "x_hat")):
+            ref, got = outs["0"][i], outs["1"][i]
+            scale = float(ref.abs().max())
+            err = float((ref - got).abs().max())
+            row[name] = {"max_abs_diff": err, "scale": scale,
+                         "of_scale": err / scale}
+            # the first round of each setting pays set-up: leave it out
+            for switch, key in (("0", "unfused_ms"), ("1", "fused_ms")):
+                row[name][key] = float(np.median(
+                    [m[i] for m in ms[switch][1:]]))
+        rows[policy] = row
+    print(json.dumps({"fused_against_unfused": {
+        "batch": list(frames.shape), "g_a_through": "analyze (with h_a)",
+        "g_s_through": "synthesize", **rows}}), flush=True)
+    for policy, row in rows.items():
+        for name in ("y", "x_hat"):
+            if not row[name]["of_scale"] <= row["tolerance_of_scale"]:
+                raise AssertionError(
+                    f"fused {name} under {policy} differs from unfused by "
+                    f"{row[name]['of_scale']} of its scale")
+
+
+def _tail_f64(mid, skip, conv, gdn, act):
+    """The block tail's formula in float64, nothing rounded."""
+    import torch
+    import torch.nn.functional as F
+
+    from mlic_tpu_torch.models.layers import _gdn_effective
+    d = torch.float64
+    g = F.gelu(mid.to(d), approximate="tanh")
+    a = F.conv2d(g, conv.dw.depth.weight.to(d), conv.dw.depth.bias.to(d),
+                 padding=1, groups=mid.shape[1])
+    h = F.conv2d(a, conv.dw.point.weight.to(d), conv.dw.point.bias.to(d))
+    if act == "gelu":
+        return F.gelu(h, approximate="tanh") + skip.to(d)
+    gamma, beta = _gdn_effective(gdn)
+    norm = F.conv2d(h * h, gamma.to(d).t()[:, :, None, None], beta.to(d))
+    return h * (norm.sqrt() if act == "igdn" else norm.rsqrt()) + skip.to(d)
+
+
+def check_fused_block(launches: int):
+    """K5 against ``fused_block_tail_plain`` on the card at every shape of
+    the path at the serving batch, at a ragged size with other widths and
+    with C != N, in f32 and bf16; both against float64; times of the
+    path's shapes.  Returns K5's entry of the kernels line."""
+    import torch
+
+    from mlic_tpu_torch.models import layers as tl
+    from mlic_tpu_torch.ops.fused_block import (
+        fused_block_tail,
+        fused_block_tail_plain,
+    )
+
+    N = 96
+    sizes = ((HEIGHT // 2, WIDTH // 2), (HEIGHT // 4, WIDTH // 4),
+             (HEIGHT // 8, WIDTH // 8))
+    cases = [(act, BATCH, N, N, h, w, True) for act in ("gdn", "igdn", "gelu")
+             for h, w in sizes]
+    cases.append(("gelu", BATCH, 160, 160, HEIGHT // 16, WIDTH // 16, True))
+    cases.append(("gdn", 1, N, N, HEIGHT // 2, WIDTH // 2, True))
+    for act in ("gdn", "igdn", "gelu"):
+        cases += [(act, 1, c, n, 37, 53, False) for c, n in
+                  ((96, 96), (160, 160), (192, 192), (320, 320), (40, 72),
+                   (100, 36))]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    rows, head = [], None
+    for act, b, c, n, h, w, on_path in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[1]
+            conv = tl.Conv3x3(c, n, 1, True, dt).cuda()
+            gdn = tl.GDN(n, inverse=act == "igdn",
+                         dtype=None if dt == torch.float32 else dt).cuda()
+            ped = gdn._OFFSET ** 2
+            with torch.no_grad():
+                conv.dw.depth.weight.copy_(randn(c, 1, 3, 3, scale=1 / 3))
+                conv.dw.depth.bias.copy_(randn(c, scale=0.1))
+                conv.dw.point.weight.copy_(randn(n, c, 1, 1, scale=c ** -0.5))
+                conv.dw.point.bias.copy_(randn(n, scale=0.1))
+                gdn.beta.copy_((1.0 + randn(n).abs() + ped).sqrt())
+                gdn.gamma.copy_((0.1 * torch.eye(n, device="cuda")
+                                 + 0.02 * randn(n, n).abs() + ped).sqrt())
+                mid, skip = randn(b, c, h, w).to(dt), randn(b, n, h, w).to(dt)
+                gamma, beta = (None, None) if act == "gelu" else (
+                    t.contiguous() for t in tl._gdn_effective(gdn))
+                args = (mid, skip, conv.dw.depth.weight, conv.dw.depth.bias,
+                        conv.dw.point.weight, conv.dw.point.bias, gamma, beta)
+                got = fused_block_tail(*args, act=act)
+                torch.cuda.synchronize()
+                ref = fused_block_tail_plain(*args, act=act)
+                exact = _tail_f64(mid, skip, conv, gdn, act)
+                if got.dtype != dt or got.shape != ref.shape:
+                    raise AssertionError(f"K5 returned {got.dtype} "
+                                         f"{tuple(got.shape)}")
+                diff = (got.double() - ref.double()).abs()
+                row = {"act": act, "dtype": name, "mid": [b, c, h, w], "N": n,
+                       "max_abs_err": float(diff.max()),
+                       "err_of_tolerance": float(
+                           (diff / (1 + ref.double().abs())).max())
+                       / K5_TOL[name],
+                       "kernel_vs_f64": float((got.double() - exact)
+                                              .abs().max()),
+                       "plain_vs_f64": float((ref.double() - exact)
+                                             .abs().max())}
+                del exact, diff
+                if on_path:
+                    def unfused(conv=conv, gdn=gdn, mid=mid, skip=skip,
+                                act=act):
+                        t = conv(tl.gelu(mid))
+                        return (tl.gelu(t) if act == "gelu" else gdn(t)) + skip
+
+                    call = functools.partial(fused_block_tail, *args, act=act)
+                    pix = b * h * w
+                    ops = pix * (2 * c * n + 18 * c
+                                 + (0 if act == "gelu" else 2 * n * n))
+                    nbytes = (mid.numel() + 2 * skip.numel()) \
+                        * mid.element_size() + 4 * sum(
+                            t.numel() for t in args[2:] if t is not None)
+                    row["bound_ms"], row["bound_by"] = bound(
+                        nbytes, ops,
+                        F32_OPS if dt == torch.float32 else BF16_OPS)
+                    row["ms"] = cuda_ms(call, 10)
+                    row["plain_ms"] = cuda_ms(functools.partial(
+                        fused_block_tail_plain, *args, act=act), 3)
+                    row["unfused_ms"] = cuda_ms(unfused, 5)
+                    if head is None and dt == torch.bfloat16:
+                        row["kernel_ms"] = kernel_ms(
+                            call, KERNEL_SYMBOLS["fused_block_tail"])
+                        head = row
+                rows.append(row)
+                if not row["err_of_tolerance"] <= 1.0:
+                    print(json.dumps({"fused_block_tail_checks": rows}),
+                          flush=True)
+                    raise AssertionError(f"K5 differs from its plain version "
+                                         f"beyond tolerance: {row}")
+    print(json.dumps({"fused_block_tail_checks": rows,
+                      "tolerance": K5_TOL}), flush=True)
+
+    # A launch that cannot run (its tile needs more shared memory than a
+    # block may have) must raise, and must not poison the next launch.
+    wide = 4096
+    bad = (randn(1, wide, 8, 8), randn(1, wide, 8, 8), randn(wide, 1, 3, 3),
+           randn(wide), randn(wide, wide, 1, 1), randn(wide),
+           randn(wide, wide), randn(wide))
+    try:
+        fused_block_tail(*bad, act="gdn")
+    except RuntimeError as e:
+        print(json.dumps({"fused_block_tail_refuses": str(e)}), flush=True)
+    else:
+        raise AssertionError("K5 took a width that cannot fit a block")
+    fused_block_tail(*args, act=act)        # the last case again: still runs
+    torch.cuda.synchronize()
+
+    return {"name": "fused_block_tail", "route": "cuda",
+            "source": "mlic_tpu_torch/csrc/fused_block_tail.cu",
+            "replaces": "mlic_tpu/ops/pallas_fused_block.py:148",
+            "launches": launches, "status": "within tolerance",
+            "tolerance": K5_TOL["bfloat16"],
+            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": None,
+            "kernel_ms": head["kernel_ms"], "unfused_ms": head["unfused_ms"],
+            "shape": head["mid"], "dtype": head["dtype"], "act": head["act"]}
+
+
 def check_lane_widths(model, frames):
     """Round trips at other lane counts (a partial warp, the widest block):
     bit-exact y_hat through the kernels."""
@@ -422,6 +711,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    torch.set_grad_enabled(False)       # inference only; K5 has no backward
     from mlic_tpu_torch.codec import Codec
     from mlic_tpu_torch.models.registry import get_model
     from mlic_tpu_torch.ops import _build
@@ -429,6 +719,7 @@ def main() -> int:
 
     card = card_line()
     print(card, flush=True)
+    os.environ.pop(FUSED_SWITCH, None)      # path 1 runs the unfused tails
     t0 = time.perf_counter()
     per = _build.build()
     print(json.dumps({"build_s": time.perf_counter() - t0,
@@ -449,13 +740,22 @@ def main() -> int:
     serve(codec, frames)
     counts = _build.launch_counts()
     print(json.dumps({"launches_on_main_path": counts}), flush=True)
-    missing = [k for k, v in counts.items() if v <= 0]
+    missing = [k for k, v in counts.items()
+               if v <= 0 and k != "fused_block_tail"]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
+    if counts["fused_block_tail"]:
+        raise AssertionError("K5 launched on path 1, where its switch is off")
 
     wall_ms = stage_times(codec, frames)
     profile_request(codec, frames[0], wall_ms)
+    eval_counts = eval_path(state)
+    fused_against_unfused(state, frames[0])
     kernels = check_kernels(codec, counts)
+    kernels.append(check_fused_block(eval_counts["fused_block_tail"]))
+    for k in kernels:
+        k["launches_by_path"] = {"serve": counts[k["name"]],
+                                 "eval": eval_counts[k["name"]]}
     check_lane_widths(model, frames)
     check_small_reference(state)
     print(card, flush=True)

@@ -1,11 +1,15 @@
-"""MLIC++ in PyTorch for one NVIDIA H100: the device-codec serving path.
+"""MLIC++ in PyTorch for one NVIDIA H100: the device-codec serving path and
+the file-based evaluation path.
 
 A port of the ``device`` backend of ``mlic_tpu`` (stream format v4:
 analyze -> context encode pass -> interleaved rANS encode, and the matching
-on-device decode) to PyTorch, with hand-written CUDA kernels for the row
-select, the analytic CDF evaluator and the two rANS scans
-(``mlic_tpu_torch/csrc``).  Every kernel has a plain PyTorch twin in the
-same module; the twin runs for CPU tensors, the kernel for CUDA tensors.
+on-device decode) and of its evaluation harness (``eval.evaluate_codec``,
+``python -m mlic_tpu_torch.tools.test``) to PyTorch, with hand-written CUDA
+kernels for the row select, the analytic CDF evaluator, the two rANS scans
+and the fused residual-block tail of g_a and g_s (``mlic_tpu_torch/csrc``;
+the last is selected by ``MLIC_FUSED_BLOCKS=1``).  Every kernel has a plain
+PyTorch twin in the same module; the twin runs for CPU tensors, the kernel
+for CUDA tensors.
 
 This package imports torch, numpy and scipy only -- never jax/flax or the
 ``mlic_tpu`` package.  Entry points default to ``device="cuda"`` and raise

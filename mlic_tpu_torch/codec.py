@@ -155,10 +155,13 @@ class Codec:
     def compress(self, x, timings: dict | None = None) -> dict:
         """x: [B,H,W,3] uint8, or float in [0,1]; H, W multiples of 64.
         Returns {"strings": [y_strings, z_strings], "shape": (h/4... z dims),
-        "y_hat": [B,h,w,M], "cost_time": s}; the z strings are empty in
-        format v4 (z travels in the y stream).  A ``timings`` dict receives
-        the host-clock ms of each stage, each ended by a device
-        synchronize: analyze, encode_pass, rans_encode, assemble."""
+        "y_hat": [B,h,w,M], "x_hat": [B,H,W,3], "cost_time": s}; the z
+        strings are empty in format v4 (z travels in the y stream) and x_hat
+        is the encode-side reconstruction g_s(y_hat), which ``decompress``
+        must reproduce bit for bit (``mlic_tpu/codec.py:971``).  A ``timings`` dict
+        receives the host-clock ms of each stage, each ended by a device
+        synchronize: analyze, encode_pass, rans_encode, assemble,
+        synthesize."""
         t0 = time.perf_counter()
         if self.tables is None:
             self.update()
@@ -180,9 +183,14 @@ class Codec:
                               2 * self.model.cfg.slice_num, self.z_rows_base)
         t = self._stage(timings, "rans_encode", t)
         streams = assemble_streams(comp, self.n_lanes)
-        self._stage(timings, "assemble", t)
+        t = self._stage(timings, "assemble", t)
+        x_hat = self.model.synthesize(y_hat)
+        self._stage(timings, "synthesize", t)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         return {"strings": [streams, [b""] * b], "shape": (zh, zw),
-                "y_hat": y_hat, "cost_time": time.perf_counter() - t0}
+                "y_hat": y_hat, "x_hat": x_hat,
+                "cost_time": time.perf_counter() - t0}
 
     @torch.no_grad()
     def decompress(self, strings, shape, timings: dict | None = None) -> dict:

@@ -1,0 +1,147 @@
+"""Evaluation harness: padded full-image coding through real files, metrics
+(port of ``mlic_tpu/eval.py`` for fixed-rate models).
+
+* pad to a multiple of 64 before coding, crop after;
+* ``compress_one_image`` writes header (H, W) + body and reports the file's
+  bpp; ``decompress_one_image`` reads it back;
+* ``evaluate_codec`` drives both over a set of images, requires the
+  decoder's reconstruction to equal the encoder's bit for bit, and averages
+  bpp, PSNR, MS-SSIM and the two wall-clock times.
+
+Images are numpy arrays ``[B,H,W,3]`` (or ``[H,W,3]``), float in [0, 1];
+the codec decides the device, and the metrics are computed there.  The
+variable-rate header (level and ``inputscale``) waits for the VBR models:
+``s is not None`` raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Iterable, Optional
+
+import numpy as np
+import torch
+
+from mlic_tpu_torch.codec import Codec
+from mlic_tpu_torch.metrics import ms_ssim, psnr
+from mlic_tpu_torch.utils import bitstream
+
+
+def pad_to_multiple(x: np.ndarray, mult: int = 64):
+    """Replication-pad [B,H,W,C] so H,W are multiples of ``mult``."""
+    h, w = x.shape[1], x.shape[2]
+    ph = (mult - h % mult) % mult
+    pw = (mult - w % mult) % mult
+    if ph or pw:
+        x = np.pad(x, ((0, 0), (0, ph), (0, pw), (0, 0)), mode="edge")
+    return x, (h, w)
+
+
+def crop_to(x, hw):
+    return x[:, :hw[0], :hw[1], :]
+
+
+def _no_vbr(s) -> None:
+    if s is not None:
+        raise NotImplementedError(
+            "the port's eval path covers fixed-rate models; a gain level "
+            "needs the VBR variants")
+
+
+def compress_one_image(codec: Codec, x: np.ndarray, path: str,
+                       s: Optional[int] = None) -> dict:
+    """Pad, compress, write the container file; returns bpp, the encode
+    time and the cropped encode-side reconstruction.  Per image (B = 1)."""
+    _no_vbr(s)
+    padded, (h, w) = pad_to_multiple(np.asarray(x))
+    if padded.shape[0] != 1:
+        raise ValueError("compress_one_image is per-image (B=1); "
+                         "loop over the batch for batched coding")
+    out = codec.compress(padded)
+    with open(path, "wb") as f:
+        bitstream.write_uints(f, (h, w))
+        bitstream.write_body(f, out["shape"], out["strings"])
+    n_bytes = os.path.getsize(path)
+    return {"bpp": 8.0 * n_bytes / (h * w), "enc_time": out["cost_time"],
+            "x_hat_enc": crop_to(out["x_hat"].cpu().numpy(), (h, w))}
+
+
+def decompress_one_image(codec: Codec, path: str) -> dict:
+    with open(path, "rb") as f:
+        h, w = bitstream.read_uints(f, 2)
+        strings, shape = bitstream.read_body(f)
+    out = codec.decompress(strings, shape)
+    return {"x_hat": crop_to(out["x_hat"].cpu().numpy(), (h, w)),
+            "dec_time": out["cost_time"]}
+
+
+def _gaussian_blur(x: np.ndarray, sigma: float = 1.0,
+                   ksize: int = 5) -> np.ndarray:
+    """Separable Gaussian blur on [B,H,W,C] (host-side, numpy)."""
+    ax = np.arange(ksize) - (ksize - 1) / 2
+    k = np.exp(-0.5 * (ax / sigma) ** 2)
+    k /= k.sum()
+    out = x
+    for axis in (1, 2):
+        pad = [(0, 0)] * 4
+        pad[axis] = ((ksize - 1) // 2, (ksize - 1) // 2)
+        xp = np.pad(out, pad, mode="edge")
+        out = sum(k[i] * np.take(xp, np.arange(out.shape[axis]) + i, axis=axis)
+                  for i in range(ksize))
+    return out.astype(x.dtype)
+
+
+def compress_bpp_constrained(codec: Codec, x: np.ndarray, path: str,
+                             max_bpp: float = 0.100, max_rounds: int = 8,
+                             s: Optional[int] = None) -> dict:
+    """Blur the input until the file rate is <= max_bpp."""
+    out = compress_one_image(codec, x, path, s=s)
+    rounds = 0
+    while out["bpp"] > max_bpp and rounds < max_rounds:
+        x = _gaussian_blur(np.asarray(x, np.float32))
+        out = compress_one_image(codec, x, path, s=s)
+        rounds += 1
+    out["blur_rounds"] = rounds
+    return out
+
+
+def evaluate_codec(codec: Codec, images: Iterable[np.ndarray], save_dir: str,
+                   s: Optional[int] = None, log=print,
+                   extra_metrics: Optional[dict] = None) -> dict:
+    """Round-trip every image through a real file; average the metrics.
+
+    ``extra_metrics``: optional {name: fn(x_hat, img) -> float} on numpy
+    arrays."""
+    _no_vbr(s)
+    os.makedirs(save_dir, exist_ok=True)
+    sums = {"bpp": 0.0, "psnr": 0.0, "ms_ssim": 0.0, "enc_time": 0.0,
+            "dec_time": 0.0}
+    sums.update({k: 0.0 for k in (extra_metrics or ())})
+    n = 0
+    for i, img in enumerate(images):
+        img = np.asarray(img, np.float32)
+        if img.ndim == 3:
+            img = img[None]
+        path = os.path.join(save_dir, f"img_{i:03d}.bin")
+        enc = compress_one_image(codec, img, path)
+        dec = decompress_one_image(codec, path)
+        if not np.array_equal(dec["x_hat"], enc["x_hat_enc"]):
+            raise AssertionError(
+                f"decode mismatch on image {i} (non-deterministic codec)")
+        x_hat = np.clip(dec["x_hat"], 0.0, 1.0)
+        a = torch.from_numpy(x_hat).to(codec.device)
+        b = torch.from_numpy(img).to(codec.device)
+        p = float(psnr(a, b))
+        m = float(ms_ssim(a, b)) if min(img.shape[1], img.shape[2]) >= 176 \
+            else float("nan")
+        sums["bpp"] += enc["bpp"]
+        sums["psnr"] += p
+        sums["ms_ssim"] += m
+        sums["enc_time"] += enc["enc_time"]
+        sums["dec_time"] += dec["dec_time"]
+        for name, fn in (extra_metrics or {}).items():
+            sums[name] += float(fn(x_hat, img))
+        n += 1
+        log(f"[{i}] bpp={enc['bpp']:.4f} psnr={p:.3f} ms-ssim={m:.5f} "
+            f"enc={enc['enc_time']*1e3:.1f}ms dec={dec['dec_time']*1e3:.1f}ms")
+    return {k: v / max(n, 1) for k, v in sums.items()} | {"n_images": n}

@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mlic_tpu_torch.ops.fused_block import fused_block_tail, use_fused_blocks
 from mlic_tpu_torch.ops.math import lower_bound
 
 
@@ -166,9 +167,7 @@ class GDN(nn.Module):
         return F.conv2d(sq, w) + beta[:, None, None]
 
     def forward(self, x):
-        ped = self._OFFSET ** 2
-        beta = lower_bound(self.beta, (self.beta_min + ped) ** 0.5) ** 2 - ped
-        gamma = lower_bound(self.gamma, ped ** 0.5) ** 2 - ped
+        gamma, beta = _gdn_effective(self)
         in_dtype = x.dtype
         if self.dtype is not None and x.dtype == self.dtype:
             norm = self._norm((x * x).float(),
@@ -179,6 +178,34 @@ class GDN(nn.Module):
         norm = self._norm(x * x, gamma, beta)
         out = x * (torch.sqrt(norm) if self.inverse else torch.rsqrt(norm))
         return out.to(in_dtype)
+
+
+def _gdn_effective(gdn: GDN):
+    """GDN's effective (post-reparametrisation) gamma [d, c] and beta
+    (layers.py:209)."""
+    ped = gdn._OFFSET ** 2
+    beta = lower_bound(gdn.beta, (gdn.beta_min + ped) ** 0.5) ** 2 - ped
+    gamma = lower_bound(gdn.gamma, ped ** 0.5) ** 2 - ped
+    return gamma, beta
+
+
+def _fused_tail(mid, skip, conv: "Conv3x3", act: str, gdn: GDN | None = None):
+    """The fused block tail (kernel K5) of a residual block, or None where
+    the block keeps its unfused tail (layers.py:217): the switch is off, the
+    block is a dense-conv twin, or GDN's dtype policy is not one the kernel
+    computes (all-f32, or the bf16-mixed policy)."""
+    if not (use_fused_blocks() and conv.depthwise):
+        return None
+    gamma = beta = None
+    if act != "gelu":
+        if not ((gdn.dtype is None and mid.dtype == torch.float32)
+                or gdn.dtype == mid.dtype):
+            return None
+        gamma, beta = _gdn_effective(gdn)
+    dw = conv.dw
+    return fused_block_tail(mid, skip, dw.depth.weight, dw.depth.bias,
+                            dw.point.weight, dw.point.bias, gamma, beta,
+                            act=act)
 
 
 class ResidualBlockWithStride(nn.Module):
@@ -196,10 +223,13 @@ class ResidualBlockWithStride(nn.Module):
             self.skip = None
 
     def forward(self, x):
-        out = self.gdn(self.conv2(gelu(self.conv1(x))))
+        mid = self.conv1(x)
         if self.skip is not None:
             x = self.skip(x)
-        return out + x
+        fused = _fused_tail(mid, x, self.conv2, "gdn", self.gdn)
+        if fused is not None:
+            return fused
+        return self.gdn(self.conv2(gelu(mid))) + x
 
 
 class ResidualBlockUpsample(nn.Module):
@@ -214,8 +244,12 @@ class ResidualBlockUpsample(nn.Module):
         self.upsample = SubpelConv3x3(in_ch, features, upsample, dtype)
 
     def forward(self, x):
-        out = self.igdn(self.conv(gelu(self.subpel(x))))
-        return out + self.upsample(x)
+        mid = self.subpel(x)
+        skip = self.upsample(x)
+        fused = _fused_tail(mid, skip, self.conv, "igdn", self.igdn)
+        if fused is not None:
+            return fused
+        return self.igdn(self.conv(gelu(mid))) + skip
 
 
 class ResidualBlock(nn.Module):
@@ -230,10 +264,13 @@ class ResidualBlock(nn.Module):
                      if in_ch != features else None)
 
     def forward(self, x):
-        out = gelu(self.conv2(gelu(self.conv1(x))))
+        mid = self.conv1(x)
         if self.skip is not None:
             x = self.skip(x)
-        return out + x
+        fused = _fused_tail(mid, x, self.conv2, "gelu")
+        if fused is not None:
+            return fused
+        return gelu(self.conv2(gelu(mid))) + x
 
 
 class MLP(nn.Module):

@@ -51,9 +51,14 @@ from mlic_tpu_torch.ops.math import (
 )
 from mlic_tpu_torch.ops.select_rows import select_rows
 
+# transform_dtype -> (compute dtype of g_a/h_a/g_s, GDN dtype), as
+# mlicpp.py:81-94: plain "bfloat16" keeps GDN's norm in f32 with casts
+# around it; "bfloat16_mixed" contracts x^2 @ gamma from bf16 inputs with
+# f32 accumulation.
 _TRANSFORM_DTYPES = {
-    "float32": None,
-    "bfloat16": torch.bfloat16,          # GDN in f32 with casts
+    "float32": (None, None),
+    "bfloat16": (torch.bfloat16, None),
+    "bfloat16_mixed": (torch.bfloat16, torch.bfloat16),
 }
 
 
@@ -80,10 +85,10 @@ class MLICPlusPlus(nn.Module):
         self.cfg = cfg
         N, M, S, C = cfg.N, cfg.M, cfg.slice_num, cfg.slice_ch
         dw = cfg.depthwise
-        tdt = _TRANSFORM_DTYPES[cfg.transform_dtype]
-        self.g_a = AnalysisTransform(N, M, dw, tdt)
+        tdt, gdt = _TRANSFORM_DTYPES[cfg.transform_dtype]
+        self.g_a = AnalysisTransform(N, M, dw, tdt, gdt)
         self.h_a = HyperAnalysis(M, N, dw, tdt)
-        self.g_s = SynthesisTransform(N, M, dw, tdt)
+        self.g_s = SynthesisTransform(N, M, dw, tdt, gdt)
         self.h_s = HyperSynthesis(M, N, dw)     # f32: feeds the entropy path
         self.entropy_bottleneck = EntropyBottleneck(N)
         for i in range(S):

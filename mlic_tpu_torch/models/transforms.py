@@ -2,8 +2,10 @@
 
 Port of ``mlic_tpu/models/transforms.py:24-135`` (depthwise variant,
 ``old_head=False``).  ``dtype`` is the compute dtype of g_a/h_a/g_s; their
-outputs are cast back to f32.  h_s always runs in f32: it feeds the entropy
-parameters.
+outputs are cast back to f32.  ``gdn_dtype`` is the GDN/IGDN policy of g_a
+and g_s: ``None`` computes the norm in f32 with casts around it, the compute
+dtype is the mixed policy (``layers.GDN``).  h_s always runs in f32: it
+feeds the entropy parameters.
 """
 
 from __future__ import annotations
@@ -23,15 +25,16 @@ from mlic_tpu_torch.models.layers import (
 class AnalysisTransform(nn.Module):
     """g_a: image [B,3,H,W] -> latent [B,M,H/16,W/16]."""
 
-    def __init__(self, N: int, M: int, depthwise: bool = True, dtype=None):
+    def __init__(self, N: int, M: int, depthwise: bool = True, dtype=None,
+                 gdn_dtype=None):
         super().__init__()
-        dw, dt = depthwise, dtype
+        dw, dt, gdt = depthwise, dtype, gdn_dtype
         self.dtype = dtype
-        self.rbs0 = ResidualBlockWithStride(3, N, 2, dw, dt)
+        self.rbs0 = ResidualBlockWithStride(3, N, 2, dw, dt, gdt)
         self.rb0 = ResidualBlock(N, N, dw, dt)
-        self.rbs1 = ResidualBlockWithStride(N, N, 2, dw, dt)
+        self.rbs1 = ResidualBlockWithStride(N, N, 2, dw, dt, gdt)
         self.rb1 = ResidualBlock(N, N, dw, dt)
-        self.rbs2 = ResidualBlockWithStride(N, N, 2, dw, dt)
+        self.rbs2 = ResidualBlockWithStride(N, N, 2, dw, dt, gdt)
         self.rb2 = ResidualBlock(N, N, dw, dt)
         self.out = Conv3x3(N, M, 2, dw, dt)
 
@@ -86,16 +89,17 @@ class HyperSynthesis(nn.Module):
 class SynthesisTransform(nn.Module):
     """g_s: latent [B,M,h,w] -> image [B,3,16h,16w]."""
 
-    def __init__(self, N: int, M: int, depthwise: bool = True, dtype=None):
+    def __init__(self, N: int, M: int, depthwise: bool = True, dtype=None,
+                 gdn_dtype=None):
         super().__init__()
-        dw, dt = depthwise, dtype
+        dw, dt, gdt = depthwise, dtype, gdn_dtype
         self.dtype = dtype
         self.rb0 = ResidualBlock(M, M, dw, dt)
-        self.up0 = ResidualBlockUpsample(M, N, 2, dw, dt)
+        self.up0 = ResidualBlockUpsample(M, N, 2, dw, dt, gdt)
         self.rb1 = ResidualBlock(N, N, dw, dt)
-        self.up1 = ResidualBlockUpsample(N, N, 2, dw, dt)
+        self.up1 = ResidualBlockUpsample(N, N, 2, dw, dt, gdt)
         self.rb2 = ResidualBlock(N, N, dw, dt)
-        self.up2 = ResidualBlockUpsample(N, N, 2, dw, dt)
+        self.up2 = ResidualBlockUpsample(N, N, 2, dw, dt, gdt)
         self.rb3 = ResidualBlock(N, N, dw, dt)
         self.out = SubpelConv3x3(N, 3, 2, dt)
 

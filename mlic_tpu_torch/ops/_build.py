@@ -92,6 +92,10 @@ KERNELS = {k.name: k for k in (
     Kernel("rans_decode_phase", "rans_decode.cu", "rans_decode_launch",
            [_P, _LL] + [_P] * 6 + [_I, _I, _I, _P, _I, _P, _P, _I, _P, _P,
                                    _P]),
+    # mid, skip, out, dw, bdw, pw, bpw, gamma, beta, B, C, N, H, W, act,
+    # is_bf16, stream
+    Kernel("fused_block_tail", "fused_block_tail.cu",
+           "fused_block_tail_launch", [_P] * 9 + [_I] * 7 + [_P]),
 )}
 
 

@@ -101,6 +101,23 @@ def test_cpu_roundtrip_bit_exact(jax_side, transform_dtype):
     assert dec["x_hat"].shape == SHAPE and torch.isfinite(dec["x_hat"]).all()
 
 
+@pytest.mark.parametrize("fused", ["0", "1"])
+@pytest.mark.parametrize("transform_dtype",
+                         ["float32", "bfloat16", "bfloat16_mixed"])
+def test_compress_returns_decoder_x_hat(jax_side, monkeypatch,
+                                        transform_dtype, fused):
+    """``compress`` returns the encode-side reconstruction, and the decoder
+    reproduces it bit for bit, with the block tails unfused and fused."""
+    monkeypatch.setenv("MLIC_FUSED_BLOCKS", fused)
+    codec = Codec(_port_model(jax_side["params"], transform_dtype),
+                  n_lanes=N_LANES, device="cpu")
+    enc = codec.compress(jax_side["x"])
+    dec = codec.decompress(enc["strings"], enc["shape"])
+    assert enc["x_hat"].shape == SHAPE and enc["x_hat"].dtype == torch.float32
+    assert torch.equal(enc["x_hat"], dec["x_hat"])
+    assert torch.equal(enc["y_hat"], dec["y_hat"])
+
+
 def test_stage_timings_leave_the_result_alone(jax_side):
     """``timings`` records every stage and changes neither the streams nor
     the decoded latent."""
@@ -112,7 +129,8 @@ def test_stage_timings_leave_the_result_alone(jax_side):
     dec = codec.decompress(staged["strings"], staged["shape"], timings=t_dec)
     assert staged["strings"] == enc["strings"]
     assert torch.equal(dec["y_hat"], enc["y_hat"])
-    assert list(t_enc) == ["analyze", "encode_pass", "rans_encode", "assemble"]
+    assert list(t_enc) == ["analyze", "encode_pass", "rans_encode", "assemble",
+                           "synthesize"]
     assert list(t_dec) == ["parse", "entropy_decode", "synthesize"]
     assert all(v >= 0.0 for v in (*t_enc.values(), *t_dec.values()))
 

@@ -39,7 +39,7 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORTS], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20     # every module was imported
+    assert int(out.stdout.split()[-1]) >= 29     # every module was imported
 
 
 def test_entry_points_default_to_cuda():
@@ -61,6 +61,7 @@ def test_wrappers_take_plain_version_only_on_cpu():
     from mlic_tpu_torch.entropy import device_rans as dr
     from mlic_tpu_torch.entropy.parametric import eval_cdf
     from mlic_tpu_torch.ops import _build
+    from mlic_tpu_torch.ops.fused_block import fused_block_tail
     from mlic_tpu_torch.ops.select_rows import select_rows
 
     table = torch.randn(5, 6)
@@ -70,7 +71,20 @@ def test_wrappers_take_plain_version_only_on_cpu():
     eval_cdf(torch.zeros(3, 8, dtype=torch.int32), *cols[:5, 0])
     dr.rans_encode_scan(torch.zeros(3, 8, dtype=torch.int16),
                         torch.full((3, 8), 100, dtype=torch.int16))
+    for dt in (torch.float32, torch.bfloat16):
+        out = fused_block_tail(
+            torch.randn(1, 4, 5, 7).to(dt), torch.randn(1, 6, 5, 7).to(dt),
+            torch.randn(4, 1, 3, 3), torch.randn(4), torch.randn(6, 4, 1, 1),
+            torch.randn(6), torch.rand(6, 6), 1 + torch.rand(6), act="igdn")
+        assert out.shape == (1, 6, 5, 7) and out.dtype == dt
     assert _build.launch_counts() == before       # no kernel launched
+    assert set(before) == {"select_rows", "eval_cdf", "rans_encode_scan",
+                           "rans_decode_phase", "fused_block_tail"}
+    with pytest.raises(ValueError, match="CUDA device"):
+        fused_block_tail(*(t.to("meta") for t in (
+            torch.randn(1, 4, 5, 7), torch.randn(1, 6, 5, 7),
+            torch.randn(4, 1, 3, 3), torch.randn(4), torch.randn(6, 4, 1, 1),
+            torch.randn(6))), act="gelu")
     with pytest.raises(ValueError):
         select_rows(row.to("meta"), table.to("meta"))
     with pytest.raises(ValueError, match="n_lanes"):
@@ -79,12 +93,47 @@ def test_wrappers_take_plain_version_only_on_cpu():
         Codec(get_model("MLICPP_TINY"), n_lanes=2048, device="cpu")
 
 
+def test_fused_kernel_source_is_its_own_cuda():
+    """K5's source computes its products itself: no library product or
+    convolution, no Triton, and a plain C entry point without PyTorch's
+    headers."""
+    from mlic_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "fused_block_tail.cu").read_text()
+    code = "\n".join(line.split("//")[0] for line in src.splitlines())
+    for banned in ("cublas", "cudnn", "cutlass", "torch", "triton", "atomic"):
+        assert banned not in code.lower(), banned
+    for needed in ("__global__", 'extern "C"', "tanhf", "rsqrtf", "fmaf",
+                   "cudaFuncAttributeMaxDynamicSharedMemorySize",
+                   "cudaGetLastError"):
+        assert needed in code, needed
+
+
+def test_port_sources_name_no_jax_import():
+    """No module of the port, nor the smoke script, imports JAX, flax,
+    orbax or the JAX package, even inside a function."""
+    import re
+
+    pat = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|orbax|mlic_tpu)"
+                     r"(\.|\s|$)", re.M)
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "mlic_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(files) >= 30
+    for f in files:
+        with open(f) as fh:
+            assert not pat.search(fh.read()), f
+
+
 def test_kernel_sources_are_listed():
     from mlic_tpu_torch.ops import _build
 
     for k in _build.KERNELS.values():
         assert (_build.CSRC / k.source).is_file()
         assert k.library_path().parent == _build.BUILD_DIR
+    k5 = _build.KERNELS["fused_block_tail"]
+    assert k5.source == "fused_block_tail.cu"
+    assert k5.symbol in (_build.CSRC / k5.source).read_text()
     assert (_build.CSRC / "cdf.cuh").is_file()
     # K2 and K4 evaluate the CDF through the one shared header
     for src in ("eval_cdf.cu", "rans_decode.cu"):
