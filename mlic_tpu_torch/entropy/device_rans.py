@@ -271,16 +271,113 @@ def rans_decode_phase_plain(words, x, img_ptr, n_lanes: int, n_steps: int,
     return sym, esc_out, x, img_ptr
 
 
-def rans_decode_phase(words, x, img_ptr, n_lanes: int, n_steps: int,
-                      cols=None, rows=None, cdf_rows=None, max_value=None,
-                      offsets=None):
-    """K4 for CUDA tensors, the plain version for CPU tensors.  One block
-    per image, one thread per lane; returns new carry tensors (the inputs
-    are not modified).  ``n_lanes`` is below 32 or a multiple of 32 up to
-    1024: the kernel's warp ballot names every lane of a full warp."""
+_MAX_CLUSTER = 8        # the portable thread-block cluster size
+_MAX_BLOCK = 512        # K4's threads a block, at most
+
+
+def decode_group(n_lanes: int) -> int:
+    """K4's threads a lane (``lane_group`` in rans_decode.cu): 8 where an
+    image's lanes fit a cluster of 8 blocks of 512 threads that way (up to
+    512 lanes), else 4."""
+    return 8 if n_lanes * 8 <= _MAX_CLUSTER * _MAX_BLOCK else 4
+
+
+def decode_blocks_per_image(n_lanes: int) -> int:
+    """K4's cluster size (``cluster_blocks`` in rans_decode.cu): one block
+    below 32 lanes, else the fewest of 1, 2, 4, 8 blocks that split an
+    image's lanes evenly with at most 512 threads (``decode_group`` a lane)
+    each.  Raises for lane counts the kernel refuses: not in [1, 31] and
+    not whole warps up to 1024."""
     if not 1 <= n_lanes <= 1024 or (n_lanes > 32 and n_lanes % 32):
         raise ValueError(f"rans_decode_phase: n_lanes {n_lanes} is neither "
                          "in [1, 31] nor a multiple of 32 up to 1024")
+    if n_lanes < 32:
+        return 1
+    group, b = decode_group(n_lanes), 1
+    while n_lanes % b or n_lanes // b * group > _MAX_BLOCK:
+        b *= 2
+    return b
+
+
+def kary_search_plain(cdf_at, cf, lo, v_lo, hi, v_hi, group: int,
+                      n_steps: int):
+    """K4's T-way slot search (``kary_search`` in rans_decode.cu), in plain
+    PyTorch over a batch of lanes; the codec path does not call it.
+
+    [lo, hi] brackets the slot with ``v_lo = cdf(lo) <= cf < v_hi =
+    cdf(hi)``; ``cdf_at(k)`` evaluates the CDF at slots k (int32, one per
+    lane).  Each of ``ceil(n_steps / log2 group)`` rounds evaluates the
+    ``group - 1`` inner split points ``lo + span * t // group`` and keeps
+    the sub-interval between the last point with cdf <= cf and the next.
+    Neither lo nor hi is ever evaluated (the bisection's conventions for
+    cdf(0) and cdf(hi) hold).  The CDF being strictly increasing, this ends
+    on the bisection's slot whenever ``n_steps`` levels pin it.  Returns
+    (lo, v_lo, hi, v_hi)."""
+    bits = group.bit_length() - 1
+    if group < 2 or 1 << bits != group:
+        raise ValueError("kary_search_plain: group must be a power of two")
+    for _ in range(-(-n_steps // bits)):
+        span = hi - lo
+        active = span > 1
+        new_lo, new_vlo = lo, v_lo
+        new_hi, new_vhi = hi, v_hi
+        found = torch.ones_like(active)          # p_0 = lo: always <= cf
+        for t in range(1, group):
+            p = lo + (span.long() * t // group).to(lo.dtype)
+            v = torch.where(p > lo, cdf_at(torch.where(active, p, lo)), v_lo)
+            le = v <= cf
+            # the first split point above cf closes the interval
+            first_gt = found & ~le
+            new_hi = torch.where(first_gt, p, new_hi)
+            new_vhi = torch.where(first_gt, v, new_vhi)
+            found = found & le
+            new_lo = torch.where(found, p, new_lo)
+            new_vlo = torch.where(found, v, new_vlo)
+        lo = torch.where(active, new_lo, lo)
+        v_lo = torch.where(active, new_vlo, v_lo)
+        hi = torch.where(active, new_hi, hi)
+        v_hi = torch.where(active, new_vhi, v_hi)
+    return lo, v_lo, hi, v_hi
+
+
+def decode_slot_plain(cf, group: int, n_steps: int, cols_s=None, row=None,
+                      cdf_rows=None, max_value=None, offsets=None):
+    """One decode step's (symbol, start, freq, esc) per lane by
+    ``kary_search_plain``, as K4 computes it: parametric with ``cols_s``
+    f32 [6, n] (m, b, A, C, B, L), else by integer rows ``row`` [n] of
+    ``cdf_rows``.  The statement of K4's step that the tests hold against
+    the bisection of ``rans_decode_phase_plain``."""
+    cf = cf.to(torch.int32)
+    lo = torch.zeros_like(cf)
+    if cols_s is not None:
+        pm, pb, pA, pC, pB, pL = cols_s
+        mv = pL.to(torch.int32)
+        lo, v_lo, hi, v_hi = kary_search_plain(
+            lambda k: eval_cdf_plain(k, pm, pb, pA, pC, pB), cf, lo,
+            torch.zeros_like(cf), mv, torch.full_like(cf, _MASK16), group,
+            n_steps)
+        esc = cf == _MASK16
+        start = torch.where(esc, _MASK16, v_lo)
+        freq = torch.where(esc, 1, v_hi - v_lo)
+        return lo - ((mv - 1) >> 1), start, freq, esc
+    row = row.long()
+    mv = max_value[row]
+    lo, v_lo, hi, v_hi = kary_search_plain(
+        lambda k: cdf_rows[row, k.long()], cf, lo, torch.zeros_like(cf),
+        mv + 1, torch.full_like(cf, 1 << 16), group, n_steps)
+    return lo + offsets[row], v_lo, v_hi - v_lo, lo == mv
+
+
+def rans_decode_phase(words, x, img_ptr, n_lanes: int, n_steps: int,
+                      cols=None, rows=None, cdf_rows=None, max_value=None,
+                      offsets=None):
+    """K4 for CUDA tensors, the plain version for CPU tensors.  A group of
+    threads per lane searches the CDF T-ways (``decode_group``), and an
+    image's lanes span a cluster of ``decode_blocks_per_image(n_lanes)``
+    blocks; returns new carry tensors (the inputs are not modified).
+    ``n_lanes`` is below 32 or a multiple of 32 up to 1024: the kernel's
+    warp ballot names every lane of a full warp."""
+    decode_blocks_per_image(n_lanes)          # raises for what K4 refuses
     if words.device.type == "cpu":
         return rans_decode_phase_plain(words, x, img_ptr, n_lanes, n_steps,
                                        cols, rows, cdf_rows, max_value,

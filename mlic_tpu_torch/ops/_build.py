@@ -57,15 +57,19 @@ class Kernel:
             h.update(f.read_bytes())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
 
+    def function(self, symbol: str, argtypes: list, restype=_I):
+        """A C function of this kernel's library, built at first use."""
+        path = self.library_path()
+        if not path.exists():
+            build([self])
+        fn = getattr(ctypes.CDLL(str(path)), symbol)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        return fn
+
     def _function(self):
         if self._fn is None:
-            path = self.library_path()
-            if not path.exists():
-                build([self])
-            fn = getattr(ctypes.CDLL(str(path)), self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = _I
-            self._fn = fn
+            self._fn = self.function(self.symbol, self.argtypes)
         return self._fn
 
     def launch(self, *args) -> None:

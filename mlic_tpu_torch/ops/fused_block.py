@@ -17,7 +17,11 @@ parameters (after the lower-bound reparametrisation), ``gamma[d, n]`` as in
 
 Any H, W, C and N are taken; the JAX function's "returns None where the
 shapes do not tile" has no counterpart.  Widths whose tile needs more shared
-memory than a block may have raise.  Forward only, like the TPU kernel.
+memory than a block may have raise ``ValueError`` before the launch
+(``smem_bytes`` asks the kernel's library for its plan).  Forward only,
+like the TPU kernel.  The bf16 kernel runs both contractions on the tensor
+cores; the f32 one keeps f32 FMA loops (TF32 would break the f32 policy's
+meaning).
 
 Rounding (``dt`` = the dtype of ``mid``; nothing is rounded when it is f32):
 gelu(mid) is computed in f32 and rounded; the 9 taps and the depthwise bias
@@ -29,6 +33,7 @@ factor, y*factor and the sum with skip are each rounded.
 
 from __future__ import annotations
 
+import ctypes
 import os
 
 import torch
@@ -38,6 +43,31 @@ from mlic_tpu_torch.ops._build import KERNELS, stream_handle
 
 KERNEL = KERNELS["fused_block_tail"]
 ACTS = {"gdn": 0, "igdn": 1, "gelu": 2}
+MAX_SMEM = 227 * 1024           # shared memory a block may have on Hopper
+
+
+_smem_fn = None
+
+
+def smem_bytes(c: int, n: int, act: str, dtype) -> int:
+    """Shared memory of one K5 block for widths (c, n), in bytes: the
+    kernel's own plan (``fused_block_tail_smem_bytes`` in
+    csrc/fused_block_tail.cu), so the library is built at the first call."""
+    global _smem_fn
+    if _smem_fn is None:
+        _smem_fn = KERNEL.function("fused_block_tail_smem_bytes",
+                                   [ctypes.c_int] * 4, ctypes.c_longlong)
+    return int(_smem_fn(c, n, ACTS[act], int(dtype == torch.bfloat16)))
+
+
+def _check_fits(c: int, n: int, act: str, dtype) -> None:
+    """Raise ValueError for widths whose block needs more shared memory
+    than a block may have (the entry point would refuse them)."""
+    need = smem_bytes(c, n, act, dtype)
+    if need > MAX_SMEM:
+        raise ValueError(f"fused_block_tail: widths C={c}, N={n} ({act}, "
+                         f"{dtype}) need {need} bytes of shared memory a "
+                         f"block; at most {MAX_SMEM}")
 
 
 def use_fused_blocks() -> bool:
@@ -129,6 +159,7 @@ def fused_block_tail(mid, skip, dw_weight, dw_bias, pw_weight, pw_bias,
                            "call it under torch.no_grad()")
     b, c, h, w = mid.shape
     n = pw_weight.shape[0]
+    _check_fits(c, n, act, mid.dtype)
     out = torch.empty_like(skip)
     KERNEL.launch(mid.data_ptr(), skip.data_ptr(), out.data_ptr(),
                   dw_weight.data_ptr(), dw_bias.data_ptr(),

@@ -299,3 +299,63 @@ def test_shape_the_tpu_kernel_refuses_is_computed(act):
         norm = (h * h) @ v["gamma"] + v["beta"]
         ref = h * (np.sqrt(norm) if act == "igdn" else 1 / np.sqrt(norm))
     np.testing.assert_allclose(got, ref + v["skip"], atol=1e-5, rtol=1e-5)
+
+
+# The widths that the port's configurations send through _fused_tail
+# (models/config.py: N = 32, 96, 128, 160, 192; M = 320 at g_s's first
+# block), each with one tail and dtype, plus C != N both ways.
+CONFIG_WIDTHS = [(32, 32, "gdn", "float32"), (96, 96, "igdn", "bfloat16"),
+                 (128, 128, "gelu", "float32"), (160, 160, "gelu", "bfloat16"),
+                 (192, 192, "gdn", "bfloat16"), (320, 320, "gelu", "bfloat16"),
+                 (96, 160, "igdn", "float32"), (160, 96, "gdn", "bfloat16")]
+
+
+@pytest.mark.parametrize("c,n,act,dtype", CONFIG_WIDTHS,
+                         ids=[f"c{c}_n{n}_{a}_{d}" for c, n, a, d in
+                              CONFIG_WIDTHS])
+def test_plain_matches_pallas_at_config_widths(c, n, act, dtype):
+    v = _tail_inputs(1000 + c + n, 1, 8, 8, c, n)
+    jdt = JDT[dtype]
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax_fused_tail(
+            jnp.asarray(v["mid"], jdt), jnp.asarray(v["skip"], jdt),
+            jnp.asarray(v["dw"]), jnp.asarray(v["bdw"]), jnp.asarray(v["pw"]),
+            jnp.asarray(v["bpw"]), jnp.asarray(v["gamma"]),
+            jnp.asarray(v["beta"]), act=act)
+    assert ref is not None
+    got = _plain(v, act, TDT[dtype])
+    np.testing.assert_allclose(got, np.asarray(ref, np.float32),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_too_wide_raises_before_launch(dtype, monkeypatch):
+    """A width whose tile the kernel's shared-memory plan puts above a
+    block's raises ValueError before any device work, and a width that fits
+    passes.  The wrapper asks the plan only for tensors on one CUDA device
+    (meta tensors stop at that test, and no kernel launches).  The plan
+    comes from the kernel's library (``fb.smem_bytes``), which builds only
+    where nvcc is, so a stand-in that grows with C * N takes its place
+    here; chip_smoke.py holds the real plan on the card."""
+    asked = []
+
+    def plan(c, n, act, dt):
+        asked.append((c, n, act, dt))
+        return 2 * c * n
+
+    monkeypatch.setattr(fb, "smem_bytes", plan)
+    with pytest.raises(ValueError, match="shared memory"):
+        fb._check_fits(4096, 4096, "gdn", dtype)
+    fb._check_fits(320, 320, "gdn", dtype)
+    assert asked == [(4096, 4096, "gdn", dtype), (320, 320, "gdn", dtype)]
+
+    def meta(c, n):
+        return [torch.empty(s, device="meta", dtype=d) for s, d in (
+            ((1, c, 8, 8), dtype), ((1, n, 8, 8), dtype),
+            ((c, 1, 3, 3), torch.float32), ((c,), torch.float32),
+            ((n, c, 1, 1), torch.float32), ((n,), torch.float32),
+            ((n, n), torch.float32), ((n,), torch.float32))]
+    before = _build.launch_counts()
+    with pytest.raises(ValueError, match="CUDA device"):
+        fb.fused_block_tail(*meta(4096, 4096), act="gdn")
+    assert len(asked) == 2 and _build.launch_counts() == before

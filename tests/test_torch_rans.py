@@ -207,3 +207,156 @@ def test_encode_scan_matches_host_loop():
                 xl >>= 16
             xl = ((xl // f) << 16) + xl % f + int(start[s, lane])
         assert int(x[lane]) == xl
+
+
+# --------------------------------------------------------------------------
+# K4's T-way search (kary_search_plain) against the bisection
+# --------------------------------------------------------------------------
+_MASK16_T = (1 << 16) - 1
+
+
+def _bisect_slots(cf, n_steps, **tabs):
+    """(sym, start, freq, esc) of one step of ``rans_decode_phase_plain``
+    per cf: one lane per image, so each lane's word pointer says whether it
+    renormalized; two states with the same cf (x >> 16 = 1 and 2) give
+    freq + cf - start and 2 freq + cf - start."""
+    n = cf.shape[0]
+    outs = []
+    for hi16 in (1, 2):
+        x = (torch.full((n,), hi16, dtype=torch.int64) << 16) | cf.long()
+        sym, esc, xo, ptr = dr.rans_decode_phase_plain(
+            torch.zeros(4, dtype=torch.int16), x,
+            torch.zeros(n, dtype=torch.int32), 1, n_steps, **tabs)
+        outs.append((sym[0], esc[0], torch.where(ptr > 0, xo >> 16, xo)))
+    freq = outs[1][2] - outs[0][2]
+    return outs[0][0], cf.long() + freq - outs[0][2], freq, outs[0][1]
+
+
+def _assert_same_slots(got, want):
+    for name, g, w in zip(("sym", "start", "freq", "esc"), got, want):
+        assert torch.equal(g.long(), w.long()), name
+
+
+
+
+@pytest.mark.parametrize("group", [2, 4, 8])
+def test_kary_search_matches_bisection_parametric(tables, group):
+    """Parametric mode: random rows and states, plus cf at every slot
+    boundary of a few rows (the escape cf = 2^16 - 1 included)."""
+    rp = tables["dev"]["row_params"]
+    lengths = tables["lengths"]
+    rng = np.random.default_rng(20 + group)
+    idx = [rng.integers(0, tables["n_g"], 3000)]
+    cf = [rng.integers(0, 1 << 16, 3000)]
+    for r in (0, 1, 31, tables["n_g"] - 2):       # narrow to wide rows
+        slots = torch.arange(1, int(lengths[r]) - 2, dtype=torch.int32)
+        m, b, A, C, B, _ = rp[r]
+        v = tp.eval_cdf_plain(slots, m, b, A, C, B).numpy()
+        bnd = np.clip(np.unique(np.concatenate([v, v - 1, [0, _MASK16_T]])),
+                      0, _MASK16_T)
+        idx.append(np.full(len(bnd), r))
+        cf.append(bnd)
+    idx = torch.from_numpy(np.concatenate(idx))
+    cf = torch.from_numpy(np.concatenate(cf).astype(np.int32))
+    cols = rp[idx].t().contiguous()
+    got = dr.decode_slot_plain(cf, group, tables["n_steps"], cols_s=cols)
+    want = _bisect_slots(cf, tables["n_steps"], cols=cols[:, None, :])
+    _assert_same_slots(got, want)
+    assert bool(got[3].any()) and bool((cf == 0).any())
+
+
+@pytest.mark.parametrize("group", [2, 4, 8])
+def test_kary_search_matches_bisection_rows(tables, group):
+    """Row-table mode (the z section): every slot boundary of the
+    factorized-prior rows and of a few Gaussian rows, cf = 0 and 2^16 - 1,
+    and random states."""
+    dev = tables["dev"]
+    rows_t, lengths = tables["rows"], tables["lengths"]
+    rng = np.random.default_rng(30 + group)
+    rows = [rng.integers(0, len(lengths), 2000)]
+    cf = [rng.integers(0, 1 << 16, 2000)]
+    for r in list(range(tables["n_g"], len(lengths))) + [0, 40]:
+        v = rows_t[r, :int(lengths[r])].astype(np.int64)
+        bnd = np.clip(np.unique(np.concatenate([v, v - 1, [0, _MASK16_T]])),
+                      0, _MASK16_T)
+        rows.append(np.full(len(bnd), r))
+        cf.append(bnd)
+    rows = torch.from_numpy(np.concatenate(rows).astype(np.int32))
+    cf = torch.from_numpy(np.concatenate(cf).astype(np.int32))
+    tabs = dict(cdf_rows=dev["cdf_rows"], max_value=dev["max_value"],
+                offsets=dev["offsets"])
+    got = dr.decode_slot_plain(cf, group, tables["z_steps"], row=rows, **tabs)
+    want = _bisect_slots(cf, tables["z_steps"], rows=rows[None], **tabs)
+    _assert_same_slots(got, want)
+    assert bool(got[3].any())
+
+
+def test_kary_search_on_tiny_codec_payload(monkeypatch):
+    """The TINY codec's own streams: every phase that ``decompress``
+    decodes is decoded again step by step with the T-way search for T in
+    {2, 4, 8}; symbols, escape flags and the carry equal the bisection's."""
+    from mlic_tpu_torch.codec import Codec
+    from mlic_tpu_torch.models.registry import get_model
+    from mlic_tpu_torch.weights import init_params
+
+    model = get_model("MLICPP_TINY")
+    model.load_state_dict(init_params(model, torch.Generator().manual_seed(0)))
+    codec = Codec(model, n_lanes=16, device="cpu")
+    x = np.random.default_rng(3).integers(0, 256, (1, 64, 64, 3),
+                                          dtype=np.uint8)
+    enc = codec.compress(x)
+    bisect = dr.rans_decode_phase
+    phases = []
+
+    def both(words, x, img_ptr, n_lanes, n_steps, cols=None, rows=None,
+             cdf_rows=None, max_value=None, offsets=None):
+        ref = bisect(words, x, img_ptr, n_lanes, n_steps, cols, rows,
+                     cdf_rows, max_value, offsets)
+        S = cols.shape[1] if cols is not None else rows.shape[0]
+        for group in (2, 4, 8):
+            xs, ptr = x, img_ptr
+            for s in range(S):
+                cf = (xs & 0xFFFF).to(torch.int32)
+                sym, start, freq, esc = dr.decode_slot_plain(
+                    cf, group, n_steps,
+                    cols_s=None if cols is None else cols[:, s],
+                    row=None if rows is None else rows[s],
+                    cdf_rows=cdf_rows, max_value=max_value, offsets=offsets)
+                assert torch.equal(sym, ref[0][s]) and torch.equal(esc, ref[1][s])
+                xs = (freq.long() * (xs >> 16) + cf - start) & 0xFFFFFFFF
+                xs, ptr = dr._renorm_global_plain(xs, ptr, words)
+            assert torch.equal(xs, ref[2]) and torch.equal(ptr, ref[3])
+        phases.append("cols" if cols is not None else "rows")
+        return ref
+
+    monkeypatch.setattr(dr, "rans_decode_phase", both)
+    dec = codec.decompress(enc["strings"], enc["shape"])
+    assert torch.equal(dec["y_hat"], enc["y_hat"])
+    assert phases[0] == "rows" and phases.count("cols") == len(phases) - 1 > 0
+
+
+@pytest.mark.parametrize("lanes", [list(range(1, 32)),
+                                   [32, 64, 96, 128, 160, 192],
+                                   [256, 320, 512, 768, 992, 1024]],
+                         ids=["below_32", "32_to_192", "256_to_1024"])
+def test_decode_cluster_sizing(lanes):
+    """K4's blocks per image: one block below 32 lanes, at most the
+    portable cluster of 8 blocks up to 1024 lanes, each block's lanes a
+    whole share of the image's and at most 512 threads; 8 threads a lane
+    up to 512 lanes, 4 above; partial warps from 32 lanes up refused."""
+    for n in lanes:
+        blocks = dr.decode_blocks_per_image(n)
+        group = dr.decode_group(n)
+        assert group == (8 if n <= 512 else 4)
+        assert 1 <= blocks <= 8 and n % blocks == 0
+        assert n // blocks * group <= 512 or n < 32
+        if n < 32:
+            assert blocks == 1
+        elif blocks > 1:       # the fewest blocks that hold the lanes
+            assert n // (blocks // 2) * group > 512
+    # the codec's widths: 16 lanes in one block, 256 in 4, 512 and 1024 in 8
+    assert [dr.decode_blocks_per_image(n) for n in (16, 256, 512, 1024)] == [
+        1, 4, 8, 8]
+    for n in (0, 33, 48, 1056):
+        with pytest.raises(ValueError, match="n_lanes"):
+            dr.decode_blocks_per_image(n)
