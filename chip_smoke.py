@@ -4,14 +4,14 @@
     python3 chip_smoke.py
 
 1. prints the card (``nvidia-smi`` name and power limit);
-2. builds the five CUDA kernels from ``mlic_tpu_torch/csrc`` (one nvcc per
+2. builds the six CUDA kernels from ``mlic_tpu_torch/csrc`` (one nvcc per
    source, in parallel);
 3. path 1, the serving path: three requests of MLICPP_S at full width --
    seeded random weights, bf16 transforms, batches of 8 seeded 768x512
    frames, 512 rANS lanes, stream format v4 -- through ``Codec.update``,
    ``Codec.compress`` and ``Codec.decompress``, asserting that the
    decoder's y_hat and x_hat are bit-identical to the encoder's, and that
-   K1-K4 were launched on that path (K5 is off there);
+   K1-K4 and K6 were launched on that path (K5 is off there);
 4. times more requests whole and, alternately, by the stages that
    ``Codec.compress``/``decompress`` record (median, min, max of each),
    and profiles one more compress and decompress (device busy time, idle
@@ -27,8 +27,13 @@
 6. g_a and g_s at the serving size with the fused tail off and on, under
    ``float32`` and ``bfloat16_mixed``: difference and median times;
 7. holds every kernel against its plain PyTorch version on the card:
-   K1-K4 on a payload with the codec's shapes and 3% escapes (exact
-   equality), K4 also on seeded states and tables in both modes at 16,
+   K1-K4 and K6 on a payload with the codec's shapes and 3% escapes (exact
+   equality; K3 and K6 also at 16, 1024 and 1 lanes and on a ragged
+   geometry, their streams byte-identical to the plain back end's; K3's
+   chain bound read from its own SASS, its reciprocal divide against //
+   over every frequency; the launches and host synchronizations of one
+   ``encode_rans_v4``, which must be none),
+   K4 also on seeded states and tables in both modes at 16,
    256, 512 and 1024 lanes (clusters of 1, 4, 8 and 8 blocks; timed), K5
    at every shape of the path, at a ragged size and at other widths, in
    f32 and bf16 (within the stated tolerance, and both against a float64
@@ -49,6 +54,7 @@ caught to carry on without the kernel.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import json
 import os
@@ -84,11 +90,19 @@ BF16_OPS = 989e12
 # Operations per CDF evaluation: a dozen float ops around erfcf, which the
 # CUDA math library computes in about 25 more.
 CDF_OPS = 36
+# Cycles a dependent integer instruction waits for its operand: the
+# shortest latency of the integer pipes, taken low so that K3's chain bound
+# stays a bound (the script does not measure it).
+DEP_CYCLES = 4
+# Host calls that wait for the card: encode_rans_v4 must make none.
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy")
 # K4 against its plain version on seeded inputs: (lanes, images, steps).
 K4_LANE_CASES = ((16, 3, 20), (256, 4, 12), (512, 2, 12), (1024, 2, 12))
 KERNEL_SYMBOLS = {"select_rows": "select_rows_kernel",
                   "eval_cdf": "eval_cdf_kernel",
                   "rans_encode_scan": "rans_encode_kernel",
+                  "rans_encode_compact": "rans_compact_kernel",
                   "rans_decode_phase": "rans_decode_kernel",
                   "fused_block_tail": "fused_block_tail_"}
 
@@ -107,6 +121,25 @@ def cuda_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int = 20) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls by CUDA events, the
+    calls enqueued while the stream is held busy (``torch.cuda._sleep``,
+    about 0.5 ms a call): where a wrapper's host time exceeds its kernel's,
+    ``cuda_ms`` measures the host and this measures the card."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(reps * 1e6))
     start.record()
     for _ in range(reps):
         fn()
@@ -282,11 +315,248 @@ def make_payload(codec, rng):
     return sym.astype(np.int32), idx.astype(np.int32), z.astype(np.int32)
 
 
+def back_end_case(secs, z, sym, lanes: int, n_phases: int, label: str):
+    """K3 and K6 against their plain versions on the card, on the prep's
+    sections ``secs`` of z and y and their symbols: exact equality of x,
+    masks, words, buf[:sum(img_n)], img_n, ebuf[:sum(ecount)] and ecount.
+    Returns (row, K3's outputs, K6's dict, the plain side's position-order
+    inputs and scan outputs)."""
+    import torch
+
+    from mlic_tpu_torch.entropy import device_rans as dr
+    (st_z, fm_z, esc_z), (st_y, fm_y, esc_y) = secs
+    got = dr.rans_encode_scan(st_z, fm_z, st_y, fm_y, lanes, n_phases)
+    comp = dr.rans_encode_compact(*got, esc_z, z, esc_y, sym, lanes,
+                                  n_phases)
+    torch.cuda.synchronize()
+
+    def layout(a, b, pad):
+        return dr.encode_layout_plain(a, b, lanes, n_phases, pad)
+
+    start16 = dr.u16_bits(layout(st_z, st_y, dr._PAD_START))
+    freqm1 = dr.u16_bits(layout(fm_z, fm_y, dr._PAD_FREQM1))
+    esc_pos, sym_pos = layout(esc_z, esc_y, False), layout(z, sym, 0)
+    ref = dr.rans_encode_scan_plain(start16, freqm1, lanes)
+    want = dr.compact_streams_global(*ref, esc_pos, sym_pos, z.shape[0])
+    n, ne = int(want["img_n"].sum()), int(want["ecount"].sum())
+    pairs = {"x": (got[0], ref[0]), "words": (got[1], ref[1]),
+             "masks": (got[2], ref[2]),
+             "buf": (comp["buf"][:n], want["buf"][:n]),
+             "img_n": (comp["img_n"], want["img_n"]),
+             "ebuf": (comp["ebuf"][:ne], want["ebuf"]),
+             "ecount": (comp["ecount"], want["ecount"])}
+    differ = [k for k, (g, r) in pairs.items()
+              if g.shape != r.shape or not torch.equal(g, r)]
+    row = {"case": label, "lanes": lanes, "images": z.shape[0],
+           "steps": start16.shape[0], "n_z": z.shape[1],
+           "n_per": sym.shape[1] // n_phases, "words": n, "escapes": ne,
+           "exact": not differ,
+           "max_abs_err_scan": max_abs_err(pairs[k] for k in
+                                           ("x", "words", "masks")),
+           "max_abs_err_compact": max_abs_err(
+               pairs[k] for k in ("buf", "img_n", "ebuf", "ecount")
+               if pairs[k][0].shape == pairs[k][1].shape)}
+    if differ or ne == 0:
+        print(json.dumps({"encode_back_end_cases": [row]}), flush=True)
+        raise AssertionError(f"K3/K6 ({label}, {lanes} lanes) differ from "
+                             f"their plain versions in {differ}, or no "
+                             f"escape was coded")
+    return row, got, comp, (start16, freqm1, esc_pos, sym_pos, ref)
+
+
+def check_back_end_cases(codec, sym, idx, z):
+    """K3 and K6 exact against their plain versions beyond the serving
+    payload: 16 lanes (two images a warp), 1024 lanes, one lane a image
+    (five images a warp), and a ragged geometry at 512 lanes with pads in
+    both sections."""
+    from mlic_tpu_torch.codec import encode_inputs_v4
+    cfg = codec.model.cfg
+    n_phases = 2 * cfg.slice_num
+    n_per = sym.shape[1] // n_phases
+    rows = []
+    for lanes, b, cut_per, cut_z, label in (
+            (16, BATCH, 1000, 1000, "partial warp"),
+            (1024, BATCH, n_per, z.shape[1], "widest"),
+            (1, 5, 300, 100, "one lane"),
+            (N_LANES, 3, 1234, 1000, "ragged")):
+        s = sym[:b].reshape(b, n_phases, n_per)[:, :, :cut_per] \
+            .reshape(b, -1).contiguous()
+        i = idx[:b].reshape(b, n_phases, n_per)[:, :, :cut_per] \
+            .reshape(b, -1).contiguous()
+        zz = z[:b, :cut_z].contiguous()
+        secs = encode_inputs_v4(s, i, zz, codec.tables, cfg.N,
+                                codec.z_rows_base)
+        rows.append(back_end_case(secs, zz, s, lanes, n_phases, label)[0])
+    return rows
+
+
+def _sass_regs(operand: str) -> list:
+    """The registers and predicates a SASS operand names."""
+    import re
+    return re.findall(r"\b(U?R\d+|U?P\d+)\b", operand)
+
+
+def sass_step_chains(code: list) -> list:
+    """The dependent instructions of K3's steps, from its SASS instructions
+    ``code``: for each two consecutive emit compares on one state register
+    x (``ISETP.GE.U32.AND P, PT, Rx, Rlimit, PT``), the longest path of the
+    register data flow from the first compare to the second's x, as the
+    opcodes on it.  A predicated write depends on its old value and its
+    predicate; ``.WIDE`` writes a register pair; a carry-out predicate is a
+    destination."""
+    import re
+    emit = re.compile(r"ISETP\.GE\.U32\.AND P\d+, PT, (R\d+)(?:\.reuse)?, "
+                      r"R\d+(?:\.reuse)?, PT$")
+    marks = [(i, m.group(1)) for i, t in enumerate(code)
+             if (m := emit.match(t))]
+    chains = []
+    for (i, x), (j, x2) in zip(marks, marks[1:]):
+        if x != x2:
+            continue
+        path = {x: []}
+        for t in code[i:j]:
+            guard = re.match(r"@!?(U?P\d+)\s+", t)
+            op, _, rest = (t[guard.end():] if guard else t).partition(" ")
+            ops = [o.strip() for o in rest.split(",")] if rest else []
+            if not ops or not re.match(r"U?[RP]\d+$", ops[0].split(".")[0]):
+                continue                    # no register written
+            dests, srcs = [ops[0].split(".")[0]], ops[1:]
+            if op.startswith("ISETP"):
+                srcs = ops[2:]
+            elif len(ops) > 1 and re.match(r"P\d+$", ops[1]) and \
+                    not op.startswith(("SEL", "IMAD.X", "IADD3.X")):
+                dests, srcs = dests + [ops[1]], ops[2:]
+            if ".WIDE" in op:
+                dests.append(f"R{int(dests[0][1:]) + 1}")
+            names = [r for o in srcs for r in _sass_regs(o)]
+            if guard:
+                names += [guard.group(1)] + dests
+            live = [path[r] for r in names if r in path]
+            for d in dests:
+                if live:
+                    path[d] = max(live, key=len) + [op]
+                else:
+                    path.pop(d, None)
+        chains.append(path.get(x2, []))
+    return chains
+
+
+def k3_chain_bound(S: int) -> dict:
+    """K3's bound by its chain, read from its own SASS (``cuobjdump -sass``
+    of the built library, written to build/kernels/rans_encode.sass): the
+    dependent instructions of one step of the consumer warp, from one emit
+    compare to the next, times S steps at DEP_CYCLES cycles each (the
+    dependent-issue latency of the integer pipes, a lower bound) at the
+    card's highest SM clock (``nvidia-smi``)."""
+    import re
+    from collections import Counter
+    from pathlib import Path
+
+    from mlic_tpu_torch.ops import _build
+    lib = _build.KERNELS["rans_encode_scan"].library_path()
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    (lib.parent / "rans_encode.sass").write_text(text)
+    block = text[text.index(KERNEL_SYMBOLS["rans_encode_scan"]):]
+    if "Function :" in block:
+        block = block[:block.index("Function :")]
+    code = [t.strip() for t in
+            re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", block)]
+    per_step = Counter()
+    step = None
+    for chain in sass_step_chains(code):
+        k = sum(op.startswith("ISETP.GE.U32") for op in chain)
+        if k and len(chain) % k == 0:
+            per_step[len(chain) // k] += k
+            if k == 1 and step is None:
+                step = chain
+    if not per_step or step is None:
+        raise AssertionError("no step of K3's chain found in its SASS")
+    n_dep = per_step.most_common(1)[0][0]
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True)
+        .stdout.split()[0])
+    return {"chain_bound_ms": S * n_dep * DEP_CYCLES / (mhz * 1e3),
+            "chain_instructions_a_step": n_dep,
+            "chain_steps_read": dict(per_step), "chain_step": step,
+            "sm_clock_max_mhz": mhz, "dep_cycles": DEP_CYCLES}
+
+
+def check_divide(kern, dev) -> int:
+    """K3's reciprocal divide against // over every frequency in [1, 2^16],
+    at the edges of its quotients and at seeded x; returns the pairs
+    checked."""
+    import torch
+    divmod_fn = kern.function("rans_divmod_launch",
+                              [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
+                                                       ctypes.c_void_p])
+    d = torch.arange(1, (1 << 16) + 1, dtype=torch.int64, device=dev)
+    top = ((1 << 32) - 1) // d
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    cols = [torch.zeros_like(d), d - 1, d, d + 1, top * d - 1, top * d,
+            torch.full_like(d, (1 << 32) - 1), (d << 16) - 1,
+            (d << 16) - 1 - d] + [
+        torch.randint(0, 1 << 32, d.shape, generator=gen, device=dev)
+        for _ in range(64)]
+    x = torch.stack(cols, 1).clamp(0, (1 << 32) - 1)
+    dd = d[:, None].expand_as(x).contiguous()
+    x32 = torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+    d32 = dd.to(torch.int32)
+    q = torch.empty_like(x32)
+    rc = divmod_fn(x32.data_ptr(), d32.data_ptr(), q.data_ptr(), x32.numel(),
+                   stream_ptr())
+    torch.cuda.synchronize()
+    if rc or not torch.equal(q.long() & 0xFFFFFFFF, x // dd):
+        raise AssertionError(f"K3's reciprocal divide differs from // on the "
+                             f"card (rc {rc})")
+    return x.numel()
+
+
+def _profiled(fn) -> list:
+    """The profiler's events of ``fn()`` followed by a device synchronize."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return list(prof.events())
+
+
+def encode_profile(encode, *args) -> dict:
+    """Kernel launches, copies, sets and host synchronizations of
+    ``encode(*args)`` by ``torch.profiler``, warmed up once; the
+    synchronizing calls of a profiled empty call (the closing synchronize
+    and the profiler's own) are not counted."""
+    import torch
+    from torch.autograd import DeviceType
+
+    def syncs(events):
+        return [e.name for e in events if e.device_type == DeviceType.CPU
+                and e.name in SYNC_CALLS]
+
+    encode(*args)
+    torch.cuda.synchronize()
+    base = syncs(_profiled(lambda: None))
+    events = _profiled(lambda: encode(*args))
+    found = syncs(events)
+    for name in base:
+        found.remove(name)
+    device = [e.name for e in events if e.device_type == DeviceType.CUDA]
+    copies = [n for n in device if n.startswith("Memcpy")]
+    sets = [n for n in device if n.startswith("Memset")]
+    return {"kernel_launches": len(device) - len(copies) - len(sets),
+            "device_copies": len(copies), "device_sets": len(sets),
+            "host_synchronizations": len(found), "sync_calls": found}
+
+
 def check_kernels(codec, counts):
     """Every kernel against its plain version on the payload; timings."""
     import torch
 
-    from mlic_tpu_torch.codec import encode_inputs_v4
+    from mlic_tpu_torch.codec import encode_inputs_v4, encode_rans_v4
     from mlic_tpu_torch.entropy import device_rans as dr
     from mlic_tpu_torch.entropy.parametric import eval_cdf, eval_cdf_plain
     from mlic_tpu_torch.entropy.stream import assemble_streams, parse_global
@@ -311,7 +581,8 @@ def check_kernels(codec, counts):
                     "status": "exact" if err == 0.0 else "differs",
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
-                    "kernel_ms": kernel_ms(call, symbol), "shape": shape})
+                    "kernel_ms": kernel_ms(call, symbol),
+                    "queued_ms": queued_ms(call), "shape": shape})
         if err != 0.0:
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version (max abs err {err})")
@@ -342,21 +613,49 @@ def check_kernels(codec, counts):
           8 * n + 20 * n + 8 * n, 2 * n * CDF_OPS, None, list(k.shape),
           lambda: eval_cdf(k, m, b, A, C, Bc))
 
-    # K3 over the whole stream of the batch.
-    start16, freqm1, esc, sym_steps = encode_inputs_v4(
-        sym, idx, z, tables, N_LANES, n_phases, codec.z_rows_base)
-    got = dr.rans_encode_scan(start16, freqm1)
-    ref = dr.rans_encode_scan_plain(start16, freqm1)
-    P = start16.numel()
-    entry("rans_encode_scan", "rans_encode.cu",
-          "mlic_tpu/entropy/device_rans.py:525",
-          max_abs_err([(g, r) for g, r in zip(got, ref)]),
-          cuda_ms(lambda: dr.rans_encode_scan(start16, freqm1), 10),
-          cuda_ms(lambda: dr.rans_encode_scan_plain(start16, freqm1), 1),
-          7 * P + 8 * start16.shape[1], 10 * P, None, list(start16.shape),
-          lambda: dr.rans_encode_scan(start16, freqm1))
-    comp = dr.compact_streams_global(*got, esc, sym_steps, BATCH)
+    # K3 and K6 over the whole stream of the batch, from the prep's sections.
+    secs = encode_inputs_v4(sym, idx, z, tables, cfg.N, codec.z_rows_base)
+    (st_z, fm_z, esc_z), (st_y, fm_y, esc_y) = secs
+    row, got, comp, (start16, freqm1, esc_pos, sym_steps, ref) = \
+        back_end_case(secs, z, sym, N_LANES, n_phases, "serving")
+    cases = [row] + check_back_end_cases(codec, sym, idx, z)
+    print(json.dumps({"encode_back_end_cases": cases}), flush=True)
     streams = assemble_streams(comp, N_LANES)
+    plain_streams = assemble_streams(dr.compact_streams_global(
+        *ref, esc_pos, sym_steps, BATCH), N_LANES)
+    if streams != plain_streams:
+        raise AssertionError("K3 + K6 streams differ from the plain back end's")
+    scan_args = (st_z, fm_z, st_y, fm_y, N_LANES, n_phases)
+    S, L = start16.shape
+    W = -(-N_LANES // 32)
+    n_real = BATCH * (z.shape[1] + sym.shape[1])
+    entry("rans_encode_scan", "rans_encode.cu",
+          "mlic_tpu/entropy/device_rans.py:525", row["max_abs_err_scan"],
+          cuda_ms(lambda: dr.rans_encode_scan(*scan_args), 20),
+          cuda_ms(lambda: dr.rans_encode_scan_plain(start16, freqm1,
+                                                    N_LANES), 1),
+          8 * n_real + 2 * S * L + 4 * S * BATCH * W + 8 * L, 10 * S * L,
+          None, [S, L], lambda: dr.rans_encode_scan(*scan_args))
+    out[-1].update(k3_chain_bound(S))
+    out[-1]["divide_checked"] = check_divide(dr.ENCODE_KERNEL, dev)
+    n_words = int(comp["img_n"].sum())
+    n_esc = int(comp["ecount"].sum())
+    compact_args = (*got, esc_z, z, esc_y, sym, N_LANES, n_phases)
+    entry("rans_encode_compact", "rans_compact.cu",
+          "mlic_tpu/entropy/device_rans.py:602", row["max_abs_err_compact"],
+          cuda_ms(lambda: dr.rans_encode_compact(*compact_args), 20),
+          cuda_ms(lambda: dr.compact_streams_global(
+              *got, esc_pos, sym_steps, BATCH), 5),
+          4 * S * BATCH * W + 2 * (n_words - 2 * L) + n_real + 4 * n_esc
+          + 8 * L + 2 * n_words + 4 * n_esc + 8 * BATCH, 0, None,
+          [S, L], lambda: dr.rans_encode_compact(*compact_args))
+    out[-1].update({"words": n_words, "escapes": n_esc})
+    prof = encode_profile(encode_rans_v4, sym, idx, z, tables, N_LANES,
+                          n_phases, codec.z_rows_base)
+    print(json.dumps({"encode_rans_v4_profile": prof}), flush=True)
+    if prof["host_synchronizations"]:
+        raise AssertionError(f"encode_rans_v4 synchronized with the host: "
+                             f"{prof['sync_calls']}")
 
     # K4 phase by phase over those streams: kernel and plain on the same
     # carry, then the escape patch; the symbols must come back.
@@ -412,7 +711,7 @@ def check_kernels(codec, counts):
           "mlic_tpu/entropy/device_rans.py:169", err, ms, plain_ms,
           24 * P + 5 * P + 2 * consumed + 16 * cols.shape[2] + 8 * BATCH,
           evals * CDF_OPS + 20 * P, None, list(cols.shape), call)
-    if n_z_steps + n_phases * n_per_steps != start16.shape[0]:
+    if n_z_steps + n_phases * n_per_steps != S:
         raise AssertionError("stream steps differ from the codec's layout")
     return out
 
@@ -694,6 +993,7 @@ def check_fused_block(launches: int):
                     if head is None and dt == torch.bfloat16:
                         row["kernel_ms"] = kernel_ms(
                             call, KERNEL_SYMBOLS["fused_block_tail"])
+                        row["queued_ms"] = queued_ms(call)
                         head = row
                 rows.append(row)
                 if not (row["err_of_tolerance"] <= 1.0 and (
@@ -756,7 +1056,8 @@ def check_fused_block(launches: int):
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": None,
-            "kernel_ms": head["kernel_ms"], "unfused_ms": head["unfused_ms"],
+            "kernel_ms": head["kernel_ms"], "queued_ms": head["queued_ms"],
+            "unfused_ms": head["unfused_ms"],
             "shape": head["mid"], "dtype": head["dtype"], "act": head["act"]}
 
 

@@ -25,15 +25,12 @@ from mlic_tpu_torch.device import resolve_device
 from mlic_tpu_torch.entropy import parametric
 from mlic_tpu_torch.entropy.cdf import get_scale_table
 from mlic_tpu_torch.entropy.device_rans import (
-    _PAD_FREQM1,
-    _PAD_START,
+    MAX_ENCODE_LANES,
     analytic_start_freq,
-    compact_streams_global,
     gather_start_freq,
     parametric_device_tables,
-    phase_order,
+    rans_encode_compact,
     rans_encode_scan,
-    u16_bits,
 )
 from mlic_tpu_torch.entropy.models import entropy_bottleneck_tables
 from mlic_tpu_torch.entropy.stream import (
@@ -43,48 +40,42 @@ from mlic_tpu_torch.entropy.stream import (
 )
 from mlic_tpu_torch.models.mlicpp import MLICPlusPlus
 
-MAX_LANES = 1024   # one decode block per image, one thread per lane
+MAX_LANES = MAX_ENCODE_LANES   # K3 and K4 take up to 1024 lanes an image
 
 
-def encode_inputs_v4(sym32, idx, z_flat, tables: dict, n_lanes: int,
-                     n_phases: int, z_rows_base: int):
-    """The encode scan's inputs for one batch, format v4 (codec.py:144).
+def encode_inputs_v4(sym32, idx, z_flat, tables: dict, n_z_rows: int,
+                     z_rows_base: int):
+    """The encode back end's inputs for one batch, format v4 (codec.py:144),
+    in the caller's [B, n] layout.
 
-    sym32/idx: int32 [B, total] y symbols and scale indexes (``n_phases``
-    equal phases, NHWC raveled); z_flat: int32 [B, zh*zw*N] hyper-latent
-    symbols, coded first with the factorized-prior rows at ids
-    ``z_rows_base + channel``.  Start/frequency prep runs in the [B, n]
-    layout (z by gathers, y by K1 + K2), then every phase is laid out in
-    position order.  Returns (start16, freqm1 int16 [S, B*n_lanes],
-    esc bool, sym int32 [S, B*n_lanes])."""
+    sym32/idx: int32 [B, total] y symbols and scale indexes (NHWC raveled);
+    z_flat: int32 [B, zh*zw*N] hyper-latent symbols, coded first with the
+    factorized-prior rows at ids ``z_rows_base + channel`` (``n_z_rows``
+    channels).  z by integer-table gathers, y by K1 + K2.  Returns the z
+    and y sections' (start int32, freq-1 int32, esc bool)."""
     b, n_z = z_flat.shape
-    n_ch = tables["cdf_rows"].shape[0] - z_rows_base
     z_rows = z_rows_base + torch.arange(n_z, dtype=torch.int32,
-                                        device=z_flat.device) % n_ch
-    st_z, fm_z, esc_z = gather_start_freq(z_flat, z_rows[None].expand(b, n_z),
-                                          tables)
-    st_y, fm_y, esc_y = analytic_start_freq(sym32, idx, tables["row_params"])
-    n_per = sym32.shape[1] // n_phases
-
-    def parts(az, ay, pad_value):
-        return torch.cat([phase_order(az, n_lanes, pad_value)] + [
-            phase_order(ay[:, k * n_per:(k + 1) * n_per], n_lanes, pad_value)
-            for k in range(n_phases)], 0)
-
-    return (u16_bits(parts(st_z, st_y, _PAD_START)),
-            u16_bits(parts(fm_z, fm_y, _PAD_FREQM1)),
-            parts(esc_z, esc_y, False), parts(z_flat, sym32, 0))
+                                        device=z_flat.device) % n_z_rows
+    z = gather_start_freq(z_flat, z_rows[None].expand(b, n_z), tables)
+    y = analytic_start_freq(sym32, idx, tables["row_params"])
+    return z, y
 
 
 def encode_rans_v4(sym32, idx, z_flat, tables: dict, n_lanes: int,
                    n_phases: int, z_rows_base: int) -> dict:
-    """On-device rANS encode of one batch, format v4: the inputs above,
-    one encode scan over the whole stream (K3), then the compaction."""
-    start16, freqm1, esc, sym = encode_inputs_v4(
-        sym32, idx, z_flat, tables, n_lanes, n_phases, z_rows_base)
-    x, words, emits = rans_encode_scan(start16, freqm1)
-    return compact_streams_global(x, words, emits, esc, sym,
-                                  z_flat.shape[0])
+    """On-device rANS encode of one batch, format v4: the prep above, then
+    the back end in two launches and no host synchronization -- the scan
+    (K3) reads the sections in place and the compaction (K6) lays out the
+    per-image word blocks and escapes.  Returns the dict that
+    ``entropy.stream.assemble_streams`` reads."""
+    z_flat, sym32 = z_flat.contiguous(), sym32.contiguous()
+    n_z_rows = tables["cdf_rows"].shape[0] - z_rows_base
+    (st_z, fm_z, esc_z), (st_y, fm_y, esc_y) = encode_inputs_v4(
+        sym32, idx, z_flat, tables, n_z_rows, z_rows_base)
+    x, words, masks = rans_encode_scan(st_z, fm_z, st_y, fm_y, n_lanes,
+                                       n_phases)
+    return rans_encode_compact(x, words, masks, esc_z, z_flat, esc_y, sym32,
+                               n_lanes, n_phases)
 
 
 class Codec:

@@ -9,10 +9,14 @@ per image, 2*n_lanes state words, then the renorm words in the decoder's
 an int32 side channel.
 
 Kernels here: K3 ``rans_encode_scan`` (replaces ``encode_scan_prepped``,
-:525) and K4 ``rans_decode_phase`` (replaces the ``lax.scan`` of
-``make_decoder(fmt="global")``, :169).  Their plain versions use int64
-masked to 32 bits for the uint32 state.  16-bit words, starts and
-frequencies are kept as int16 tensors holding uint16 bits.
+:525, and the ``phase_order`` layout in front of it), K6
+``rans_encode_compact`` (replaces ``compact_streams_global``, :602) and K4
+``rans_decode_phase`` (replaces the ``lax.scan`` of
+``make_decoder(fmt="global")``, :169).  K3 and K6 read the prep's [B, n]
+sections through the index arithmetic of ``encode_sources_plain``.  The
+plain versions use int64 masked to 32 bits for the uint32 state.  16-bit
+words, starts and frequencies are kept as int16 tensors holding uint16
+bits.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ _MASK32 = (1 << 32) - 1
 _PAD_START = 0
 _PAD_FREQM1 = (1 << 16) - 2
 ENCODE_KERNEL = KERNELS["rans_encode_scan"]
+COMPACT_KERNEL = KERNELS["rans_encode_compact"]
 DECODE_KERNEL = KERNELS["rans_decode_phase"]
 
 
@@ -103,12 +108,108 @@ def phase_order(flat: torch.Tensor, n_lanes: int, pad_value=0) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# K3: the encode scan
+# K3 and K6: the encode back end, from the prep's [B, n] sections
 # --------------------------------------------------------------------------
-def rans_encode_scan_plain(start16: torch.Tensor, freqm1: torch.Tensor):
-    """Reverse scan over [S, L] uint16-bit (start, freq-1).  Returns
-    (x int64 [L] final states, words int16 [S, L] (x & 0xffff before each
-    step's emit test), emits bool [S, L])."""
+MAX_ENCODE_LANES = 1024
+
+
+def encode_steps(n_z: int, n_per: int, n_phases: int, n_lanes: int) -> tuple:
+    """(steps of z, steps of one y phase, all steps) of the position layout
+    (csrc/rans_layout.cuh): each section padded to a lane multiple."""
+    sz, sp = -(-n_z // n_lanes), -(-n_per // n_lanes)
+    return sz, sp, sz + n_phases * sp
+
+
+def encode_sources_plain(n_images: int, n_z: int, n_per: int, n_phases: int,
+                         n_lanes: int):
+    """Where each position (step, image, lane) reads its symbol, by the
+    index arithmetic of K3 and K6 (``encode_source`` in rans_layout.cuh):
+    returns (in_y bool [S, L], idx int64 [S, L]), idx the flat index into
+    the z section [B, n_z] or the y section [B, n_phases * n_per], -1 for a
+    pad.  The CPU tests hold it against ``phase_order``."""
+    sz, sp, S = encode_steps(n_z, n_per, n_phases, n_lanes)
+    s = torch.arange(S)[:, None]
+    g = torch.arange(n_images * n_lanes)[None, :]
+    b, l = g // n_lanes, g % n_lanes
+    in_y = (s >= sz).expand(S, g.shape[1])
+    t = (s - sz).clamp(min=0)
+    k = t // max(sp, 1)
+    jy = (t - k * sp) * n_lanes + l
+    jz = s * n_lanes + l
+    idx = torch.where(in_y,
+                      torch.where(jy < n_per,
+                                  b * (n_phases * n_per) + k * n_per + jy, -1),
+                      torch.where(jz < n_z, b * n_z + jz, -1))
+    return in_y, idx
+
+
+def encode_layout_plain(z: torch.Tensor, y: torch.Tensor, n_lanes: int,
+                        n_phases: int, pad_value) -> torch.Tensor:
+    """The z [B, n_z] and y [B, n_phases * n_per] sections in position
+    order [S, B*n_lanes] by ``encode_sources_plain``, pads ``pad_value``."""
+    in_y, idx = encode_sources_plain(z.shape[0], z.shape[1],
+                                     y.shape[1] // n_phases, n_phases, n_lanes)
+    flat = torch.cat([z.reshape(-1), y.reshape(-1),
+                      torch.full((1,), pad_value, dtype=z.dtype,
+                                 device=z.device)])
+    where = torch.where(idx < 0, flat.numel() - 1, idx + in_y * z.numel())
+    return flat[where.to(z.device)]
+
+
+def _popc32(v: torch.Tensor) -> torch.Tensor:
+    """Set bits of int64 values in [0, 2^32)."""
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) & _MASK32) >> 24
+
+
+def emits_to_masks(emits: torch.Tensor, n_lanes: int) -> torch.Tensor:
+    """bool [S, B*n_lanes] -> K3's ballot masks int32 [S, B, W] (uint32
+    bits; lane l of an image at bit l % 32 of word l // 32)."""
+    S, L = emits.shape
+    wl = min(n_lanes, 32)
+    e = emits.reshape(S, L // n_lanes, -1, wl).long()
+    bits = (e << torch.arange(wl, device=emits.device)).sum(-1)
+    return torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(torch.int32)
+
+
+def masks_to_emits(masks: torch.Tensor, n_lanes: int) -> torch.Tensor:
+    """K3's ballot masks int32 [S, B, W] -> bool [S, B*n_lanes]."""
+    S, B, _ = masks.shape
+    j = torch.arange(min(n_lanes, 32), device=masks.device)
+    return ((masks.long()[..., None] >> j) & 1).bool().reshape(S, B * n_lanes)
+
+
+def divmod_magic_plain(x: torch.Tensor, freq: torch.Tensor, slack: int = 2):
+    """K3's divide (``make_prep`` and ``quotient`` in csrc/rans_encode.cu)
+    in plain PyTorch: (x // freq, x % freq) for int64 x in [0, 2^32) and
+    freq in [1, 2^16], with no division of x.
+
+    Any M = 2^52 / freq + e with 0 <= e < 16 gives q = floor(x M / 2^52) =
+    x // freq: x M / 2^52 = x / freq + x e / 2^52, where x e / 2^52 < 16 *
+    2^-20 = 2^-16 <= 1 / freq, while x / freq lies at least 1 / freq below
+    the next integer.  Here M = floor(w) + ``slack`` with w = 2^52 / freq
+    rounded to nearest (|w - 2^52 / freq| <= 1/4), so slack 1 to 15 stays
+    in range; the kernel takes w from an approximate reciprocal and slack
+    4.  The product is split as the kernel splits it, M = Mh 2^32 + Ml and
+    q = (x Mh + umulhi(x, Ml)) >> 20 (umulhi here from 16-bit halves of x,
+    so that every product fits int64)."""
+    w = torch.full(freq.shape, float(1 << 52), dtype=torch.float64,
+                   device=freq.device) / freq.double()
+    m = w.floor().long() + slack
+    m_hi, m_lo = m >> 32, m & _MASK32
+    t = ((x >> 16) * m_lo + (((x & _MASK16) * m_lo) >> 16)) >> 16
+    q = (x * m_hi + t) >> 20
+    return q, x - q * freq
+
+
+def rans_encode_scan_plain(start16: torch.Tensor, freqm1: torch.Tensor,
+                           n_lanes: int):
+    """Reverse scan over [S, L] position-ordered uint16-bit (start, freq-1),
+    int64 state, plain // and %.  Returns (x int64 [L] final states, words
+    int16 [S, L] (x & 0xffff before each step's emit test), masks int32
+    [S, B, W] of the lanes that emitted)."""
     S, L = start16.shape
     st = start16.long() & _MASK16
     fr = (freqm1.long() & _MASK16) + 1
@@ -122,42 +223,117 @@ def rans_encode_scan_plain(start16: torch.Tensor, freqm1: torch.Tensor):
         emits[s] = emit
         x = torch.where(emit, x >> 16, x)
         x = ((x // f) << 16) + (x % f) + st[s]
-    return x, u16_bits(words), emits
+    return x, u16_bits(words), emits_to_masks(emits, n_lanes)
 
 
-def rans_encode_scan(start16: torch.Tensor, freqm1: torch.Tensor):
-    """K3 for CUDA tensors, the plain version for CPU tensors.
-    start16, freqm1: int16 (uint16 bits) [S, L], contiguous."""
-    if start16.device.type == "cpu":
-        return rans_encode_scan_plain(start16, freqm1)
-    if start16.device.type != "cuda" or freqm1.device != start16.device:
-        raise ValueError("rans_encode_scan: inputs must share a CUDA device")
-    if start16.dtype != torch.int16 or freqm1.dtype != torch.int16:
-        raise TypeError("rans_encode_scan: inputs must be int16 (uint16 bits)")
-    if (start16.dim() != 2 or start16.shape != freqm1.shape
-            or not (start16.is_contiguous() and freqm1.is_contiguous())):
-        raise ValueError("rans_encode_scan: inputs must be contiguous [S, L]")
-    S, L = start16.shape
-    dev = start16.device
-    x = torch.empty(L, dtype=torch.int64, device=dev)
-    words = torch.empty((S, L), dtype=torch.int16, device=dev)
-    emits = torch.empty((S, L), dtype=torch.bool, device=dev)
-    ENCODE_KERNEL.launch(start16.data_ptr(), freqm1.data_ptr(), x.data_ptr(),
-                         words.data_ptr(), emits.data_ptr(), S, L,
-                         stream_handle(start16))
-    return x, words, emits
+def _encode_geometry(name: str, z: torch.Tensor, y: torch.Tensor,
+                     n_lanes: int, n_phases: int) -> tuple:
+    """(B, n_z, n_per, S, z.shape, y.shape) of the sections; raises, on any
+    device, for what K3 and K6 refuse (``make_encode_layout`` in
+    csrc/rans_layout.cuh)."""
+    if not 1 <= n_lanes <= MAX_ENCODE_LANES or n_lanes & (n_lanes - 1):
+        raise ValueError(f"{name}: n_lanes {n_lanes} is not a power of two "
+                         f"in [1, {MAX_ENCODE_LANES}]")
+    zs, ys = z.shape, y.shape
+    if len(zs) != 2 or len(ys) != 2 or zs[0] != ys[0] or zs[0] < 1:
+        raise ValueError(f"{name}: sections must be [B, n_z] and [B, n_y] "
+                         "with B >= 1")
+    (B, n_z), n_y = zs, ys[1]
+    if n_phases < 1 or n_y % n_phases:
+        raise ValueError(f"{name}: n_phases {n_phases} does not split the y "
+                         f"section's {n_y} columns")
+    n_per = n_y // n_phases
+    S = encode_steps(n_z, n_per, n_phases, n_lanes)[2]
+    if (S + 2) * B * n_lanes >= 1 << 31 or B * (n_z + n_y) >= 1 << 31:
+        raise ValueError(f"{name}: {B} images of {S} steps exceed int32 "
+                         "positions")
+    return B, n_z, n_per, S, zs, ys
 
 
-def compact_streams_global(x, words, emits, esc, sym, n_images: int) -> dict:
-    """Format-v3/v4 compaction (device_rans.py:602): per-image word blocks
-    [2*n_lanes state words (hi, lo per lane), renorm words in (step, lane)
-    order], written by a cumsum and a scatter onto unique positions.
+def _check_tensors(name: str, *specs) -> None:
+    """Each (tensor, dtype, shape) on the first tensor's device, with that
+    dtype and shape, contiguous."""
+    dev = specs[0][0].device
+    for t, dt, shape in specs:
+        if t.dtype != dt:
+            raise TypeError(f"{name}: expected {dt}, got {t.dtype}")
+        if t.shape != shape or not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous {tuple(shape)} "
+                             f"tensor, got {tuple(t.shape)}")
+        if t.device != dev:
+            raise ValueError(f"{name}: inputs must share one device")
+
+
+def rans_encode_scan(z_start, z_freqm1, y_start, y_freqm1, n_lanes: int,
+                     n_phases: int):
+    """K3 for CUDA tensors, its plain version for CPU tensors: the encode
+    scan straight from the prep's sections, int32 (uint16 values) start
+    and freq-1 of z [B, n_z] and y [B, n_phases * n_per]; on the card a
+    block of one consumer warp and eight producer warps serves 32 lanes.
+    Returns (x int64 [B*n_lanes], words int16 [S, B*n_lanes], masks int32
+    [S, B, W])."""
+    B, n_z, n_per, S, zs, ys = _encode_geometry(
+        "rans_encode_scan", z_start, y_start, n_lanes, n_phases)
+    i32 = torch.int32
+    _check_tensors("rans_encode_scan", (z_start, i32, zs), (z_freqm1, i32, zs),
+                   (y_start, i32, ys), (y_freqm1, i32, ys))
+    dev = z_start.device
+    if dev.type == "cpu":
+        return rans_encode_scan_plain(
+            u16_bits(encode_layout_plain(z_start, y_start, n_lanes, n_phases,
+                                         _PAD_START)),
+            u16_bits(encode_layout_plain(z_freqm1, y_freqm1, n_lanes,
+                                         n_phases, _PAD_FREQM1)), n_lanes)
+    if dev.type != "cuda":
+        raise ValueError("rans_encode_scan: inputs must be on a CUDA device")
+    L, W = B * n_lanes, -(-n_lanes // 32)
+    x = z_start.new_empty(L, dtype=torch.int64)
+    words = z_start.new_empty((S, L), dtype=torch.int16)
+    masks = z_start.new_empty((S, B, W), dtype=i32)
+    ENCODE_KERNEL.launch(z_start.data_ptr(), z_freqm1.data_ptr(),
+                         y_start.data_ptr(), y_freqm1.data_ptr(),
+                         x.data_ptr(), words.data_ptr(), masks.data_ptr(), B,
+                         n_lanes, n_z, n_per, n_phases,
+                         stream_handle(z_start))
+    return x, words, masks
+
+
+def word_positions_plain(masks: torch.Tensor, n_lanes: int):
+    """K6's rank arithmetic in plain PyTorch: each emitted word's place in
+    ``buf`` from K3's masks alone -- after its image's begin and 2*n_lanes
+    state words, the exclusive scan of the popcounts of the image's
+    (step, word) masks in (step, word) order, plus the popcount of the
+    mask's bits below the lane.  Returns (pos int64 [S, B*n_lanes], -1
+    where nothing was emitted; img_n int64 [B]).  The CPU tests hold it
+    against the cumsum ranks of ``compact_streams_global``."""
+    S, B, W = masks.shape
+    m = masks.long() & _MASK32
+    per_img = _popc32(m).permute(1, 0, 2).reshape(B, S * W)
+    base = (torch.cumsum(per_img, 1) - per_img).reshape(B, S, W) \
+        .permute(1, 0, 2)
+    img_n = per_img.sum(1) + 2 * n_lanes
+    img_begin = torch.cumsum(img_n, 0) - img_n
+    j = torch.arange(min(n_lanes, 32), device=masks.device)
+    below = _popc32(m[..., None] & ((1 << j) - 1))
+    pos = img_begin[None, :, None, None] + 2 * n_lanes + base[..., None] \
+        + below
+    pos = torch.where(((m[..., None] >> j) & 1).bool(), pos, -1)
+    return pos.reshape(S, B * n_lanes), img_n
+
+
+def compact_streams_global(x, words, masks, esc, sym, n_images: int) -> dict:
+    """Format-v3/v4 compaction (device_rans.py:602), the plain version of
+    K6: per-image word blocks [2*n_lanes state words (hi, lo per lane),
+    renorm words in (step, lane) order], written by a cumsum and a scatter
+    onto unique positions; ``masks`` are K3's, ``esc`` and ``sym`` [S, L]
+    in position order.
 
     Returns buf int16 [S*L + 2L] (uint16 bits; image b occupies
     [img_begin[b], img_begin[b] + img_n[b])), img_n int32 [B], ebuf int32
     (escape values, image-major, position order) and ecount int32 [B]."""
-    S, L = emits.shape
+    S, L = words.shape
     nl = L // n_images
+    emits = masks_to_emits(masks, nl)
 
     def per_image(a):
         return a.reshape(S, n_images, nl).permute(1, 0, 2).reshape(
@@ -179,6 +355,50 @@ def compact_streams_global(x, words, emits, esc, sym, n_images: int) -> dict:
     return {"buf": buf, "img_n": img_n,
             "ebuf": per_image(sym).to(torch.int32)[esc_i],
             "ecount": esc_i.sum(1, dtype=torch.int32)}
+
+
+def rans_encode_compact(x, words, masks, z_esc, z_sym, y_esc, y_sym,
+                        n_lanes: int, n_phases: int) -> dict:
+    """K6 for CUDA tensors, ``compact_streams_global`` for CPU tensors:
+    K3's outputs and the prep's escape flags (bool) and symbols (int32) of
+    z [B, n_z] and y [B, n_phases * n_per] -> {"buf", "img_n", "ebuf",
+    "ecount"} as ``compact_streams_global`` returns them, except that on
+    the card ``ebuf`` holds S*L entries of which the first sum(ecount) are
+    used.  Nothing is read back to the host."""
+    B, n_z, n_per, S, zs, ys = _encode_geometry(
+        "rans_encode_compact", z_sym, y_sym, n_lanes, n_phases)
+    L, W = B * n_lanes, -(-n_lanes // 32)
+    i32 = torch.int32
+    _check_tensors("rans_encode_compact", (x, torch.int64, (L,)),
+                   (words, torch.int16, (S, L)), (masks, i32, (S, B, W)),
+                   (z_esc, torch.bool, zs), (z_sym, i32, zs),
+                   (y_esc, torch.bool, ys), (y_sym, i32, ys))
+    dev = x.device
+    if dev.type == "cpu":
+        return compact_streams_global(
+            x, words, masks,
+            encode_layout_plain(z_esc, y_esc, n_lanes, n_phases, False),
+            encode_layout_plain(z_sym, y_sym, n_lanes, n_phases, 0), B)
+    if dev.type != "cuda":
+        raise ValueError("rans_encode_compact: inputs must be on a CUDA "
+                         "device")
+    # scratch: K6's escape masks [S * B * W], then its item counts (int2,
+    # so at an even offset)
+    n_em = S * B * W + (S * B * W) % 2
+    scratch = x.new_empty(n_em + 2 * B * max(S, 1), dtype=i32)
+    counts = x.new_empty((2, B), dtype=i32)
+    out = {"buf": x.new_empty(S * L + 2 * L, dtype=torch.int16),
+           "img_n": counts[0], "ebuf": x.new_empty(max(S * L, 1), dtype=i32),
+           "ecount": counts[1]}
+    emasks = scratch.data_ptr()
+    COMPACT_KERNEL.launch(
+        masks.data_ptr(), words.data_ptr(), x.data_ptr(), z_esc.data_ptr(),
+        z_sym.data_ptr(), y_esc.data_ptr(), y_sym.data_ptr(), emasks,
+        emasks + 4 * n_em, out["buf"].data_ptr(),
+        out["img_n"].data_ptr(), out["ebuf"].data_ptr(),
+        out["ecount"].data_ptr(), B, n_lanes, n_z, n_per, n_phases,
+        stream_handle(x))
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -13,6 +13,7 @@ format v4, whose leading phases code the hyper-latent z inline.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 _V3_FLAG = np.uint32(1 << 31)
 _V4_FLAG = np.uint32(1 << 30)
@@ -58,13 +59,13 @@ def parse_global(stream: bytes):
 
 
 def assemble_streams(comp: dict, n_lanes: int) -> list:
-    """Per-image format-v4 streams from
-    ``device_rans.compact_streams_global``'s device arrays: one copy of the
-    counts, one of the used word and escape prefixes."""
-    img_n = comp["img_n"].cpu().numpy().astype(np.int64)
-    ecount = comp["ecount"].cpu().numpy().astype(np.int64)
+    """Per-image format-v4 streams from the rANS encode's device arrays
+    (``device_rans.rans_encode_compact``): one copy of the counts, then
+    one of the used word prefix and one of the used escape prefix."""
+    counts = torch.cat([comp["img_n"], comp["ecount"]]).cpu().numpy()
+    img_n, ecount = np.split(counts.astype(np.int64), 2)
     buf = comp["buf"][:int(img_n.sum())].cpu().numpy().view(np.uint16)
-    ebuf = comp["ebuf"].cpu().numpy().astype(np.int32)
+    ebuf = comp["ebuf"][:int(ecount.sum())].cpu().numpy().astype(np.int32)
     flags = _V3_FLAG | _V4_FLAG
     wb = np.concatenate([[0], np.cumsum(img_n)])
     eb = np.concatenate([[0], np.cumsum(ecount)])

@@ -87,9 +87,14 @@ KERNELS = {k.name: k for k in (
     # k, m, b, A, C, B, out, n_total, n_cols, stream
     Kernel("eval_cdf", "eval_cdf.cu", "eval_cdf_launch",
            [_P] * 7 + [_LL, _LL, _P]),
-    # start16, freqm1, x_out, words, emits, S, L, stream
+    # z_start, z_freqm1, y_start, y_freqm1, x_out, words, masks, n_images,
+    # n_lanes, n_z, n_per, n_phases, stream
     Kernel("rans_encode_scan", "rans_encode.cu", "rans_encode_launch",
-           [_P] * 5 + [_I, _I, _P]),
+           [_P] * 7 + [_I] * 5 + [_P]),
+    # masks, words, x, z_esc, z_sym, y_esc, y_sym, emasks, agg, buf, img_n,
+    # ebuf, ecount, n_images, n_lanes, n_z, n_per, n_phases, stream
+    Kernel("rans_encode_compact", "rans_compact.cu", "rans_compact_launch",
+           [_P] * 13 + [_I] * 5 + [_P]),
     # words, n_words, x_in, ptr_in, x_out, ptr_out, sym, esc, S, n_images,
     # n_lanes, cols, n_steps, rows, cdf_rows, width, max_value, offsets,
     # stream
@@ -146,5 +151,8 @@ def launch_counts() -> dict:
 
 
 def stream_handle(t) -> int:
-    """The current CUDA stream of ``t``'s device, as an int for ctypes."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream of ``t``'s device, as an int for ctypes.
+    ``torch.cuda.current_stream(dev).cuda_stream`` builds a Stream object
+    and costs several microseconds a launch; the raw handle is what it
+    holds."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -69,8 +69,11 @@ def test_wrappers_take_plain_version_only_on_cpu():
     before = _build.launch_counts()
     cols = select_rows(row, table)
     eval_cdf(torch.zeros(3, 8, dtype=torch.int32), *cols[:5, 0])
-    dr.rans_encode_scan(torch.zeros(3, 8, dtype=torch.int16),
-                        torch.full((3, 8), 100, dtype=torch.int16))
+    sec = torch.zeros(2, 12, dtype=torch.int32)
+    x, words, masks = dr.rans_encode_scan(sec, sec + 100, sec, sec + 100, 4,
+                                          3)
+    dr.rans_encode_compact(x, words, masks, sec.bool(), sec, sec.bool(), sec,
+                           4, 3)
     for dt in (torch.float32, torch.bfloat16):
         out = fused_block_tail(
             torch.randn(1, 4, 5, 7).to(dt), torch.randn(1, 6, 5, 7).to(dt),
@@ -79,7 +82,8 @@ def test_wrappers_take_plain_version_only_on_cpu():
         assert out.shape == (1, 6, 5, 7) and out.dtype == dt
     assert _build.launch_counts() == before       # no kernel launched
     assert set(before) == {"select_rows", "eval_cdf", "rans_encode_scan",
-                           "rans_decode_phase", "fused_block_tail"}
+                           "rans_encode_compact", "rans_decode_phase",
+                           "fused_block_tail"}
     with pytest.raises(ValueError, match="CUDA device"):
         fused_block_tail(*(t.to("meta") for t in (
             torch.randn(1, 4, 5, 7), torch.randn(1, 6, 5, 7),

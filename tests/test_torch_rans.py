@@ -187,15 +187,20 @@ def test_decode_phase_rejects_partial_warp_lane_counts(n_lanes):
 
 
 def test_encode_scan_matches_host_loop():
-    """The plain encode scan against a per-lane Python reference of the
-    rans16 step (emit iff x >= freq << 16)."""
+    """The encode scan (its plain version, through the wrapper) against a
+    per-lane Python reference of the rans16 step (emit iff x >= freq <<
+    16): one image of 8 lanes, the y section in place, no z."""
     rng = np.random.default_rng(9)
     S, L = 40, 8
     freq = rng.integers(1, 1 << 12, (S, L))
     start = rng.integers(0, (1 << 16) - freq)
-    x, words, emits = dr.rans_encode_scan(
-        dr.u16_bits(torch.from_numpy(start)),
-        dr.u16_bits(torch.from_numpy(freq - 1)))
+    i32 = torch.int32
+    x, words, masks = dr.rans_encode_scan(
+        torch.zeros((1, 0), dtype=i32), torch.zeros((1, 0), dtype=i32),
+        torch.from_numpy(start.reshape(1, -1)).to(i32),
+        torch.from_numpy((freq - 1).reshape(1, -1)).to(i32), L, 1)
+    assert masks.shape == (S, 1, 1) and masks.dtype == i32
+    emits = dr.masks_to_emits(masks, L)
     for lane in range(L):
         xl = 1 << 16
         for s in range(S - 1, -1, -1):
@@ -360,3 +365,156 @@ def test_decode_cluster_sizing(lanes):
     for n in (0, 33, 48, 1056):
         with pytest.raises(ValueError, match="n_lanes"):
             dr.decode_blocks_per_image(n)
+
+
+# --------------------------------------------------------------------------
+# The encode back end (K3 + K6): position layout, ranks, divide, refusals
+# --------------------------------------------------------------------------
+def _sections(tables, sym, idx, z):
+    """The prep's z and y sections, as ``encode_rans_v4`` computes them."""
+    from mlic_tpu_torch.codec import encode_inputs_v4
+    sym_t, idx_t, z_t = (torch.from_numpy(a) for a in (sym, idx, z))
+    return encode_inputs_v4(sym_t, idx_t, z_t, tables["dev"], N_CH,
+                            tables["n_g"]), sym_t, z_t
+
+
+def _old_layout(az, ay, n_lanes, pad_value):
+    """The layout before the back end read the sections in place: every
+    phase through ``phase_order``, concatenated."""
+    return torch.cat([dr.phase_order(az, n_lanes, pad_value)] + [
+        dr.phase_order(ay[:, k * N_PER:(k + 1) * N_PER], n_lanes, pad_value)
+        for k in range(N_PHASES)], 0)
+
+
+@pytest.mark.parametrize("n_lanes", [1, 16, 32])
+def test_back_end_equals_old_composition(tables, n_lanes):
+    """The plain back end (``rans_encode_scan`` + ``rans_encode_compact`` on
+    the sections) equals phase_order + ``rans_encode_scan_plain`` +
+    ``compact_streams_global``; 100 symbols a phase and 48 of z leave pads
+    at 16 and 32 lanes."""
+    sym, idx, z = _payload(tables, 0.03, 11)
+    ((st_z, fm_z, esc_z), (st_y, fm_y, esc_y)), sym_t, z_t = _sections(
+        tables, sym, idx, z)
+    got_scan = dr.rans_encode_scan(st_z, fm_z, st_y, fm_y, n_lanes, N_PHASES)
+    got = dr.rans_encode_compact(*got_scan, esc_z, z_t, esc_y, sym_t,
+                                 n_lanes, N_PHASES)
+    start16 = dr.u16_bits(_old_layout(st_z, st_y, n_lanes, dr._PAD_START))
+    freqm1 = dr.u16_bits(_old_layout(fm_z, fm_y, n_lanes, dr._PAD_FREQM1))
+    ref_scan = dr.rans_encode_scan_plain(start16, freqm1, n_lanes)
+    ref = dr.compact_streams_global(
+        *ref_scan, _old_layout(esc_z, esc_y, n_lanes, False),
+        _old_layout(z_t, sym_t, n_lanes, 0), B)
+    for g, r in zip(got_scan, ref_scan):
+        assert torch.equal(g, r)
+    n = int(ref["img_n"].sum())
+    assert torch.equal(got["buf"][:n], ref["buf"][:n])
+    for key in ("img_n", "ebuf", "ecount"):
+        assert torch.equal(got[key], ref[key])
+    assert int(ref["ecount"].sum()) > 0
+    if n_lanes > 1:
+        assert bool((start16.shape[0] * n_lanes * B
+                     > B * (z.shape[1] + sym.shape[1])))     # pads occur
+
+
+@pytest.mark.parametrize("n_lanes,n_z,n_per",
+                         [(1, 7, 5), (16, 48, 100), (32, 0, 33), (64, 65, 64)])
+def test_encode_sources_match_phase_order(n_lanes, n_z, n_per):
+    """``encode_sources_plain`` (K3's and K6's index arithmetic) lays the
+    sections out as phase_order + concatenation does, pads included."""
+    n_phases, b = 3, 3
+    z = torch.arange(b * n_z, dtype=torch.int32).reshape(b, n_z)
+    y = 10_000 + torch.arange(b * n_phases * n_per,
+                              dtype=torch.int32).reshape(b, -1)
+    got = dr.encode_layout_plain(z, y, n_lanes, n_phases, -1)
+    want = torch.cat([dr.phase_order(z, n_lanes, -1)] + [
+        dr.phase_order(y[:, k * n_per:(k + 1) * n_per], n_lanes, -1)
+        for k in range(n_phases)], 0)
+    assert torch.equal(got, want)
+    assert got.shape[0] == dr.encode_steps(n_z, n_per, n_phases, n_lanes)[2]
+
+
+@pytest.mark.parametrize("n_lanes", [1, 16, 32, 64])
+def test_word_positions_match_cumsum_ranks(n_lanes):
+    """K6's rank arithmetic (``word_positions_plain``: mask popcount scans)
+    places every emitted word where the cumsum of
+    ``compact_streams_global`` does, and counts the same img_n."""
+    rng = np.random.default_rng(40 + n_lanes)
+    S, b = 9, 3
+    emits = torch.from_numpy(rng.random((S, b * n_lanes)) < 0.4)
+    emits[:, :n_lanes] = True            # a full word: bit 31 set at 32+
+    masks = dr.emits_to_masks(emits, n_lanes)
+    assert torch.equal(dr.masks_to_emits(masks, n_lanes), emits)
+    pos, img_n = dr.word_positions_plain(masks, n_lanes)
+    em_i = emits.reshape(S, b, n_lanes).permute(1, 0, 2).reshape(b, -1)
+    e = em_i.long()
+    n = e.sum(1) + 2 * n_lanes
+    want = (torch.cumsum(n, 0) - n)[:, None] + 2 * n_lanes \
+        + torch.cumsum(e, 1) - e
+    want = torch.where(em_i, want, -1).reshape(b, S, n_lanes) \
+        .permute(1, 0, 2).reshape(S, -1)
+    assert torch.equal(pos, want) and torch.equal(img_n, n)
+
+
+@pytest.mark.parametrize("slack", [1, 2, 15])
+def test_divmod_magic_exact_for_every_frequency(slack):
+    """K3's reciprocal divide equals // and % for every freq in [1, 2^16]
+    at the edges of its quotients (0, freq - 1, freq, the largest
+    multiples below 2^32 and one either side, x < freq << 16) and at
+    seeded x < 2^32, with the reciprocal anywhere in its stated range."""
+    d = torch.arange(1, (1 << 16) + 1, dtype=torch.int64)
+    top = ((1 << 32) - 1) // d
+    rng = np.random.default_rng(50)
+    cols = [torch.zeros_like(d), d - 1, d, d + 1, top * d - 1, top * d,
+            torch.full_like(d, (1 << 32) - 1), (d << 16) - 1,
+            ((d << 16) - 1).clamp(max=(1 << 32) - 1) - d,
+            torch.from_numpy(rng.integers(0, 1 << 32, d.shape[0])),
+            torch.from_numpy(rng.integers(0, 1 << 32, d.shape[0]))]
+    x = torch.stack(cols, 1).clamp(0, (1 << 32) - 1)
+    dd = d[:, None].expand_as(x)
+    q, r = dr.divmod_magic_plain(x, dd, slack)
+    assert torch.equal(q, x // dd) and torch.equal(r, x % dd)
+
+
+def _good_sections(b=2, n_z=12, n_y=24):
+    i = torch.zeros((b, n_z), dtype=torch.int32)
+    j = torch.zeros((b, n_y), dtype=torch.int32)
+    return i, i.clone(), j, j.clone()
+
+
+@pytest.mark.parametrize("case", ["lanes_0", "lanes_3", "lanes_2048",
+                                  "int16", "batch", "phases", "strided",
+                                  "meta"])
+def test_encode_wrappers_refuse(case):
+    """K3's and K6's wrappers refuse, on any device and before any launch,
+    lane counts, dtypes, shapes and layouts the kernels cannot take, and
+    a device that is neither the CPU nor CUDA."""
+    z, fz, y, fy = _good_sections()
+    lanes, phases = 4, 3
+    if case.startswith("lanes"):
+        lanes = int(case.split("_")[1])
+    elif case == "int16":
+        y = y.to(torch.int16)
+    elif case == "batch":
+        y = torch.zeros((3, 24), dtype=torch.int32)
+    elif case == "phases":
+        phases = 5
+    elif case == "strided":
+        y = torch.zeros((24, 2), dtype=torch.int32).t()
+    elif case == "meta":
+        z, fz, y, fy = (t.to("meta") for t in (z, fz, y, fy))
+    err = TypeError if case == "int16" else ValueError
+    with pytest.raises(err):
+        dr.rans_encode_scan(z, fz, y, fy, lanes, phases)
+    # the compaction checks the same geometry and its own inputs' shapes
+    x, words, masks = dr.rans_encode_scan(*_good_sections(), 4, 3)
+    esc_z, esc_y = torch.zeros((2, 12), dtype=torch.bool), \
+        torch.zeros((2, 24), dtype=torch.bool)
+    with pytest.raises(err):
+        dr.rans_encode_compact(x, words, masks, esc_z.to(z.device), z,
+                               esc_y.to(y.device) if case != "batch"
+                               else torch.zeros((3, 24), dtype=torch.bool),
+                               y, lanes, phases)
+    with pytest.raises(ValueError):
+        dr.rans_encode_compact(x, words, masks[:-1], esc_z,
+                               *_good_sections()[:1], esc_y,
+                               _good_sections()[2], 4, 3)
