@@ -4,35 +4,39 @@
     python3 chip_smoke.py
 
 1. prints the card (``nvidia-smi`` name and power limit);
-2. builds the six CUDA kernels from ``mlic_tpu_torch/csrc`` (one nvcc per
+2. builds the seven CUDA kernels from ``mlic_tpu_torch/csrc`` (one nvcc per
    source, in parallel);
-3. path 1, the serving path: three requests of MLICPP_S at full width --
-   seeded random weights, bf16 transforms, batches of 8 seeded 768x512
-   frames, 512 rANS lanes, stream format v4 -- through ``Codec.update``,
-   ``Codec.compress`` and ``Codec.decompress``, asserting that the
-   decoder's y_hat and x_hat are bit-identical to the encoder's, and that
-   K1-K4 and K6 were launched on that path (K5 is off there);
+3. path 1, the serving path: a codec of MLICPP_S at full width -- seeded
+   random weights, bf16 transforms, an explicit 512 rANS lanes, stream
+   format v4 -- built by ``Codec.update``, then three requests of batches
+   of 8 seeded 768x512 frames through ``Codec.compress`` and
+   ``Codec.decompress``, asserting that the decoder's y_hat and x_hat are
+   bit-identical to the encoder's, that K1-K4, K6 and K7 were launched on
+   that path (K5 is off there), and that K1 and K2 ran only in
+   ``update`` (0 launches per batch);
 4. times more requests whole and, alternately, by the stages that
    ``Codec.compress``/``decompress`` record (median, min, max of each),
    and profiles one more compress and decompress (device busy time, idle
    share against the median whole time, top ops by device time);
 5. path 2, the file-based evaluation path: the same model under the
-   ``bfloat16_mixed`` policy with ``MLIC_FUSED_BLOCKS=1`` through
+   ``bfloat16_mixed`` policy with ``MLIC_FUSED_BLOCKS=1`` and the
+   reference's automatic lane count (``Codec(n_lanes="auto")``) through
    ``mlic_tpu_torch.eval.evaluate_codec`` into a temporary directory --
    four dead-leaves frames of 512x768 and one cropped to 500x750 (the
    pad-and-crop path) -- asserting what ``evaluate_codec`` asserts (the
    decoder's x_hat bit-identical to the encoder's, read back from the
-   file), finite bpp, PSNR and MS-SSIM, 20 launches of K5 per image and
-   launches of K1-K4;
+   file), finite bpp, PSNR and MS-SSIM beside the lane count resolved, 20
+   launches of K5 per image and launches of every other kernel;
 6. g_a and g_s at the serving size with the fused tail off and on, under
    ``float32`` and ``bfloat16_mixed``: difference and median times;
 7. holds every kernel against its plain PyTorch version on the card:
-   K1-K4 and K6 on a payload with the codec's shapes and 3% escapes (exact
-   equality; K3 and K6 also at 16, 1024 and 1 lanes and on a ragged
-   geometry, their streams byte-identical to the plain back end's; K3's
-   chain bound read from its own SASS, its reciprocal divide against //
-   over every frequency; the launches and host synchronizations of one
-   ``encode_rans_v4``, which must be none),
+   K1-K4, K6 and K7 on a payload with the codec's shapes and 3% escapes
+   (exact equality; K3, K6 and K7 also at 16, 1024 and 1 lanes, on a
+   ragged geometry and at batch 128, their streams byte-identical to the
+   plain back end's; K7 also timed against the composition of K1, K2 and
+   PyTorch ops it replaced; K3's chain bound read from its own SASS, its
+   reciprocal divide against // over every frequency; the launches and
+   host synchronizations of one ``encode_rans_v4``: at most 6 and none),
    K4 also on seeded states and tables in both modes at 16,
    256, 512 and 1024 lanes (clusters of 1, 4, 8 and 8 blocks; timed), K5
    at every shape of the path, at a ragged size and at other widths, in
@@ -68,7 +72,9 @@ import numpy as np
 SEED = 0
 MODEL = "MLICPP_S"
 BATCH, HEIGHT, WIDTH = 8, 512, 768
+BIG_BATCH = 128                 # the North star's batch: K3, K6, K7 exact
 N_LANES = 512
+MAX_ENCODE_LAUNCHES = 6         # encode_rans_v4: K7, K3, K6 and no more
 N_REQUESTS = 3
 STAGE_REQUESTS = 7
 ESC_SHARE = 0.03
@@ -101,6 +107,7 @@ SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
 K4_LANE_CASES = ((16, 3, 20), (256, 4, 12), (512, 2, 12), (1024, 2, 12))
 KERNEL_SYMBOLS = {"select_rows": "select_rows_kernel",
                   "eval_cdf": "eval_cdf_kernel",
+                  "rans_encode_prep": "rans_encode_prep_kernel",
                   "rans_encode_scan": "rans_encode_kernel",
                   "rans_encode_compact": "rans_compact_kernel",
                   "rans_decode_phase": "rans_decode_kernel",
@@ -292,7 +299,7 @@ def profile_request(codec, x, wall_ms: dict, top: int = 8):
     print(json.dumps({"profile": out}), flush=True)
 
 
-def make_payload(codec, rng):
+def make_payload(codec, rng, batch: int = BATCH):
     """Symbols and scale indexes with the codec's shapes (10 y phases of
     32x24x32 per image, z of 8x12x96) and ESC_SHARE escapes."""
     from mlic_tpu_torch.entropy.cdf import get_scale_table
@@ -301,7 +308,7 @@ def make_payload(codec, rng):
     off = codec.tables["offsets"].cpu().numpy().astype(np.int64)
     n_phases = 2 * cfg.slice_num
     n_per = (HEIGHT // 16) * (WIDTH // 32) * cfg.slice_ch
-    idx = rng.integers(0, 64, (BATCH, n_phases * n_per))
+    idx = rng.integers(0, 64, (batch, n_phases * n_per))
     sym = np.rint(rng.standard_normal(idx.shape) * get_scale_table()[idx])
     sym = np.clip(sym, off[idx], off[idx] + mv[idx] - 1)
     esc = rng.random(idx.shape) < ESC_SHARE
@@ -309,7 +316,7 @@ def make_payload(codec, rng):
     sym = np.where(esc, rng.choice([-1, 1], idx.shape) * big, sym)
     n_z = (HEIGHT // 64) * (WIDTH // 64) * cfg.N
     zr = codec.z_rows_base + np.arange(n_z) % cfg.N
-    z = off[zr] + rng.integers(0, mv[zr], (BATCH, n_z))
+    z = off[zr] + rng.integers(0, mv[zr], (batch, n_z))
     zesc = rng.random(z.shape) < ESC_SHARE
     z = np.where(zesc, off[zr] - 1 - rng.integers(0, 100, z.shape), z)
     return sym.astype(np.int32), idx.astype(np.int32), z.astype(np.int32)
@@ -364,12 +371,26 @@ def back_end_case(secs, z, sym, lanes: int, n_phases: int, label: str):
     return row, got, comp, (start16, freqm1, esc_pos, sym_pos, ref)
 
 
+def prep_case(codec, sym, idx, z):
+    """K7 on the card against its plain version: the sections and the max
+    abs error over all six outputs (raises unless 0)."""
+    from mlic_tpu_torch.entropy import device_rans as dr
+    args = (sym, idx, z, codec.tables, codec.z_rows_base, codec.model.cfg.N)
+    got, ref = dr.rans_encode_prep(*args), dr.encode_prep_plain(*args)
+    err = max_abs_err((g, r) for gs, rs in zip(got, ref)
+                      for g, r in zip(gs, rs))
+    if err != 0.0 or any(g.shape != r.shape for gs, rs in zip(got, ref)
+                         for g, r in zip(gs, rs)):
+        raise AssertionError(f"K7 differs from its plain version at "
+                             f"{tuple(sym.shape)} (max abs err {err})")
+    return got, err
+
+
 def check_back_end_cases(codec, sym, idx, z):
-    """K3 and K6 exact against their plain versions beyond the serving
+    """K3, K6 and K7 exact against their plain versions beyond the serving
     payload: 16 lanes (two images a warp), 1024 lanes, one lane a image
     (five images a warp), and a ragged geometry at 512 lanes with pads in
     both sections."""
-    from mlic_tpu_torch.codec import encode_inputs_v4
     cfg = codec.model.cfg
     n_phases = 2 * cfg.slice_num
     n_per = sym.shape[1] // n_phases
@@ -384,10 +405,35 @@ def check_back_end_cases(codec, sym, idx, z):
         i = idx[:b].reshape(b, n_phases, n_per)[:, :, :cut_per] \
             .reshape(b, -1).contiguous()
         zz = z[:b, :cut_z].contiguous()
-        secs = encode_inputs_v4(s, i, zz, codec.tables, cfg.N,
-                                codec.z_rows_base)
+        secs, prep_err = prep_case(codec, s, i, zz)
         rows.append(back_end_case(secs, zz, s, lanes, n_phases, label)[0])
+        rows[-1]["max_abs_err_prep"] = prep_err
     return rows
+
+
+def check_big_batch(codec, n_phases: int) -> dict:
+    """K7, K3 and K6 exact against their plain versions at the North
+    star's batch (BIG_BATCH frames of 768x512, 512 lanes: 498 steps x
+    65,536 lanes), and their times there."""
+    import torch
+
+    from mlic_tpu_torch.entropy import device_rans as dr
+    sym, idx, z = (torch.from_numpy(a).cuda() for a in make_payload(
+        codec, np.random.default_rng(SEED + 6), BIG_BATCH))
+    secs, prep_err = prep_case(codec, sym, idx, z)
+    row, got, _, _ = back_end_case(secs, z, sym, N_LANES, n_phases,
+                                   "north star batch")
+    (_, _, esc_z), (_, _, esc_y) = secs
+    prep_args = (sym, idx, z, codec.tables, codec.z_rows_base,
+                 codec.model.cfg.N)
+    compact_args = (*got, esc_z, z, esc_y, sym, N_LANES, n_phases)
+    row.update({"max_abs_err_prep": prep_err,
+                "prep_queued_ms": queued_ms(
+                    lambda: dr.rans_encode_prep(*prep_args)),
+                "compact_queued_ms": queued_ms(
+                    lambda: dr.rans_encode_compact(*compact_args))})
+    print(json.dumps({"encode_back_end_big_batch": row}), flush=True)
+    return row
 
 
 def _sass_regs(operand: str) -> list:
@@ -549,14 +595,15 @@ def encode_profile(encode, *args) -> dict:
     sets = [n for n in device if n.startswith("Memset")]
     return {"kernel_launches": len(device) - len(copies) - len(sets),
             "device_copies": len(copies), "device_sets": len(sets),
-            "host_synchronizations": len(found), "sync_calls": found}
+            "host_synchronizations": len(found), "sync_calls": found,
+            "kernels": [n[:60] for n in device]}
 
 
 def check_kernels(codec, counts):
     """Every kernel against its plain version on the payload; timings."""
     import torch
 
-    from mlic_tpu_torch.codec import encode_inputs_v4, encode_rans_v4
+    from mlic_tpu_torch.codec import encode_rans_v4
     from mlic_tpu_torch.entropy import device_rans as dr
     from mlic_tpu_torch.entropy.parametric import eval_cdf, eval_cdf_plain
     from mlic_tpu_torch.entropy.stream import assemble_streams, parse_global
@@ -613,13 +660,50 @@ def check_kernels(codec, counts):
           8 * n + 20 * n + 8 * n, 2 * n * CDF_OPS, None, list(k.shape),
           lambda: eval_cdf(k, m, b, A, C, Bc))
 
+    # K7, the prep, against its plain version and, timed, the composition
+    # of K1, K2 and PyTorch ops it replaced.
+    secs, prep_err = prep_case(codec, sym, idx, z)
+    prep_args = (sym, idx, z, tables, codec.z_rows_base, cfg.N)
+    n_y, n_zt = sym.numel(), z.numel()
+    composition = functools.partial(dr.encode_prep_plain, *prep_args,
+                                    select=select_rows, cdf=eval_cdf)
+    entry("rans_encode_prep", "rans_encode_prep.cu",
+          "mlic_tpu/entropy/device_rans.py:419", prep_err,
+          cuda_ms(lambda: dr.rans_encode_prep(*prep_args), 20),
+          cuda_ms(lambda: dr.encode_prep_plain(*prep_args), 5),
+          17 * n_y + 13 * n_zt + rp.numel() * 4, 2 * n_y * CDF_OPS, None,
+          [BATCH, sym.shape[1] + z.shape[1]],
+          lambda: dr.rans_encode_prep(*prep_args))
+    out[-1].update({"composition_ms": cuda_ms(composition, 10),
+                    "composition_queued_ms": queued_ms(composition),
+                    "composition": "gather_start_freq + analytic_start_freq "
+                                   "through K1 select_rows and K2 eval_cdf"})
+
+    # The launches of one rANS encode: K7, K3, K6 and nothing else.  (Taken
+    # before the batch-128 checks: in a run of the whole script, traces
+    # taken after them held no device events.)
+    prof = encode_profile(encode_rans_v4, sym, idx, z, tables, N_LANES,
+                          n_phases, codec.z_rows_base)
+    print(json.dumps({"encode_rans_v4_profile": prof}), flush=True)
+    seen = [KERNEL_SYMBOLS[k] for k in ("rans_encode_prep", "rans_encode_scan",
+                                         "rans_encode_compact")]
+    if prof["host_synchronizations"] or \
+            prof["kernel_launches"] > MAX_ENCODE_LAUNCHES or \
+            not all(any(sym_ in n for n in prof["kernels"]) for sym_ in seen):
+        raise AssertionError(f"encode_rans_v4 made {prof['kernel_launches']} "
+                             f"launches (at most {MAX_ENCODE_LAUNCHES}, K7, K3 "
+                             f"and K6 among them: {prof['kernels']}) and "
+                             f"synchronized with the host: "
+                             f"{prof['sync_calls']}")
+
     # K3 and K6 over the whole stream of the batch, from the prep's sections.
-    secs = encode_inputs_v4(sym, idx, z, tables, cfg.N, codec.z_rows_base)
     (st_z, fm_z, esc_z), (st_y, fm_y, esc_y) = secs
     row, got, comp, (start16, freqm1, esc_pos, sym_steps, ref) = \
         back_end_case(secs, z, sym, N_LANES, n_phases, "serving")
+    row["max_abs_err_prep"] = prep_err
     cases = [row] + check_back_end_cases(codec, sym, idx, z)
     print(json.dumps({"encode_back_end_cases": cases}), flush=True)
+    big = check_big_batch(codec, n_phases)
     streams = assemble_streams(comp, N_LANES)
     plain_streams = assemble_streams(dr.compact_streams_global(
         *ref, esc_pos, sym_steps, BATCH), N_LANES)
@@ -649,13 +733,10 @@ def check_kernels(codec, counts):
           4 * S * BATCH * W + 2 * (n_words - 2 * L) + n_real + 4 * n_esc
           + 8 * L + 2 * n_words + 4 * n_esc + 8 * BATCH, 0, None,
           [S, L], lambda: dr.rans_encode_compact(*compact_args))
-    out[-1].update({"words": n_words, "escapes": n_esc})
-    prof = encode_profile(encode_rans_v4, sym, idx, z, tables, N_LANES,
-                          n_phases, codec.z_rows_base)
-    print(json.dumps({"encode_rans_v4_profile": prof}), flush=True)
-    if prof["host_synchronizations"]:
-        raise AssertionError(f"encode_rans_v4 synchronized with the host: "
-                             f"{prof['sync_calls']}")
+    out[-1].update({"words": n_words, "escapes": n_esc,
+                    "big_batch_queued_ms": big["compact_queued_ms"]})
+    next(k for k in out if k["name"] == "rans_encode_prep")[
+        "big_batch_queued_ms"] = big["prep_queued_ms"]
 
     # K4 phase by phase over those streams: kernel and plain on the same
     # carry, then the escape patch; the symbols must come back.
@@ -681,36 +762,36 @@ def check_kernels(codec, counts):
         [None].expand(BATCH, -1), N_LANES, codec.z_rows_base - 1).contiguous()
     for k in range(n_phases + 1):
         if k == 0:
-            kw = dict(rows=z_rows, cdf_rows=tables["cdf_rows"],
-                      max_value=tables["max_value"], offsets=tables["offsets"])
+            args = (z_rows, tables, False)
             steps = codec.z_steps_row
         else:
-            kw = dict(cols=select_rows(ordered_idx[k - 1], rp))
+            args = (ordered_idx[k - 1], tables, True)
             steps = codec.n_steps
-        got = dr.rans_decode_phase(words, x, ptr, N_LANES, steps, **kw)
-        ref = dr.rans_decode_phase_plain(words, x, ptr, N_LANES, steps, **kw)
+        got = dr.rans_decode_phase(words, x, ptr, N_LANES, steps, *args)
+        ref = dr.rans_decode_phase_plain(words, x, ptr, N_LANES, steps, *args)
         err = max(err, max_abs_err([(g, r) for g, r in zip(got, ref)]))
         if k == 1:
             call = functools.partial(dr.rans_decode_phase, words, x, ptr,
-                                     N_LANES, steps, **kw)
+                                     N_LANES, steps, *args)
             timed = (cuda_ms(call, 10), cuda_ms(functools.partial(
                 dr.rans_decode_phase_plain, words, x, ptr, N_LANES, steps,
-                **kw), 1), kw["cols"], got, ptr, call)
+                *args), 1), args[0], got, ptr, call)
         sym_k, esc_count = dr.patch_escapes(got[0], got[1], esc_count,
                                             esc_vals, esc_begin, N_LANES)
         decoded.append(sym_k)
         x, ptr = got[2], got[3]
     if not torch.equal(torch.cat(decoded), sym_steps.reshape(-1)):
         raise AssertionError("decoded payload differs from the encoded one")
-    ms, plain_ms, cols, got1, ptr0, call = timed
-    P = cols.shape[1] * cols.shape[2]
+    ms, plain_ms, rows1, got1, ptr0, call = timed
+    P = rows1.numel()
     consumed = int((got1[3] - ptr0).sum())
-    Lrow = cols[5].to(torch.int64).clamp(min=1)
+    Lrow = rp[rows1.long(), 5].to(torch.int64).clamp(min=1)
     evals = float(torch.floor(torch.log2(Lrow.double())).sum())
     entry("rans_decode_phase", "rans_decode.cu",
           "mlic_tpu/entropy/device_rans.py:169", err, ms, plain_ms,
-          24 * P + 5 * P + 2 * consumed + 16 * cols.shape[2] + 8 * BATCH,
-          evals * CDF_OPS + 20 * P, None, list(cols.shape), call)
+          4 * P + 5 * P + 2 * consumed + 16 * rows1.shape[1] + 8 * BATCH
+          + rp.numel() * 4, evals * CDF_OPS + 20 * P, None,
+          list(rows1.shape), call)
     if n_z_steps + n_phases * n_per_steps != S:
         raise AssertionError("stream steps differ from the codec's layout")
     return out
@@ -728,7 +809,6 @@ def check_decode_lanes(codec):
     import torch
 
     from mlic_tpu_torch.entropy import device_rans as dr
-    from mlic_tpu_torch.ops.select_rows import select_rows
     tables = codec.tables
     rp = tables["row_params"]
     rng = np.random.default_rng(SEED + 4)
@@ -742,18 +822,14 @@ def check_decode_lanes(codec):
                                .astype(np.int32)).cuda()
         idx = torch.from_numpy(rng.integers(0, rp.shape[0] - 1, (S, BL))
                                .astype(np.int32)).cuda()
-        for mode, kw, steps in (
-                ("parametric", dict(cols=select_rows(idx, rp)),
-                 codec.n_steps),
-                ("rows", dict(rows=idx, cdf_rows=tables["cdf_rows"],
-                              max_value=tables["max_value"],
-                              offsets=tables["offsets"]),
-                 codec.z_steps_row)):
+        for mode, parametric, steps in (
+                ("parametric", True, codec.n_steps),
+                ("rows", False, codec.z_steps_row)):
             call = functools.partial(dr.rans_decode_phase, words, x, ptr,
-                                     lanes, steps, **kw)
+                                     lanes, steps, idx, tables, parametric)
             got = call()
             ref = dr.rans_decode_phase_plain(words, x, ptr, lanes, steps,
-                                             **kw)
+                                             idx, tables, parametric)
             exact = all(torch.equal(g, r) for g, r in zip(got, ref))
             rows.append({"lanes": lanes, "images": B, "steps": S,
                          "mode": mode,
@@ -773,7 +849,7 @@ def eval_path(state) -> dict:
     the fused block tail (K5) in g_a and g_s.  Returns its launch counts."""
     import torch
 
-    from mlic_tpu_torch.codec import Codec
+    from mlic_tpu_torch.codec import Codec, auto_lanes
     from mlic_tpu_torch.data.folder import dead_leaves_pool
     from mlic_tpu_torch.eval import evaluate_codec
     from mlic_tpu_torch.models.registry import get_model
@@ -782,23 +858,25 @@ def eval_path(state) -> dict:
     os.environ[FUSED_SWITCH] = "1"
     model = get_model(MODEL, transform_dtype="bfloat16_mixed")
     model.load_state_dict(state)
-    codec = Codec(model, n_lanes=N_LANES, device="cuda")
-    codec.update()
     pool = dead_leaves_pool(EVAL_FRAMES, HEIGHT, SEED, width=WIDTH,
                             cache_dir="")
     images = [f.astype(np.float32) / 255.0 for f in pool]
     images.append(images[0][:EVAL_CROP[0], :EVAL_CROP[1]])
     lines = []
     _build.reset_launch_counts()
+    codec = Codec(model, device="cuda")         # n_lanes="auto"
+    codec.update()
     with tempfile.TemporaryDirectory() as save_dir:
         # raises unless every decoder x_hat, read back from its file, is
         # bit-identical to the encoder's
-        res = evaluate_codec(codec, images, save_dir, log=lines.append)
+        res = evaluate_codec(
+            codec, images, save_dir,
+            log=lambda line: lines.append(f"{line} lanes={codec.n_lanes}"))
         files = sorted(os.listdir(save_dir))
     counts = _build.launch_counts()
     print(json.dumps({"eval_path": {
         "model": MODEL, "transform_dtype": "bfloat16_mixed",
-        FUSED_SWITCH: "1", "lanes": N_LANES,
+        FUSED_SWITCH: "1", "lanes": "auto", "lanes_resolved": codec.n_lanes,
         "images": [list(i.shape) for i in images], "files": files,
         "note": "seeded random weights: bpp, PSNR and MS-SSIM measure the "
                 "plumbing, not the codec's quality",
@@ -806,6 +884,10 @@ def eval_path(state) -> dict:
     if res["n_images"] != len(images) or len(files) != len(images):
         raise AssertionError(f"eval path: {res['n_images']} images, "
                              f"{len(files)} files for {len(images)} inputs")
+    want_lanes = auto_lanes(model.cfg, HEIGHT, WIDTH)
+    if codec.n_lanes != want_lanes:
+        raise AssertionError(f"eval path: resolved {codec.n_lanes} lanes, "
+                             f"auto_lanes gives {want_lanes}")
     bad = [k for k in ("bpp", "psnr", "ms_ssim") if not np.isfinite(res[k])]
     if bad or not res["bpp"] > 0:
         raise AssertionError(f"eval path: not finite: {bad}, bpp {res['bpp']}")
@@ -1121,24 +1203,31 @@ def main() -> int:
     model = get_model(MODEL, transform_dtype="bfloat16")
     state = init_params(model, torch.Generator().manual_seed(SEED))
     model.load_state_dict(state)
+    rng = np.random.default_rng(SEED)
+    frames = [rng.integers(0, 256, (BATCH, HEIGHT, WIDTH, 3), dtype=np.uint8)
+              for _ in range(N_REQUESTS)]
+
+    # path 1: the server builds its codec and tables, then serves
+    _build.reset_launch_counts()
     codec = Codec(model, n_lanes=N_LANES, device="cuda")
     t0 = time.perf_counter()
     codec.update()          # raises unless both self-checks pass
     print(json.dumps({"update_s": time.perf_counter() - t0}), flush=True)
-
-    rng = np.random.default_rng(SEED)
-    frames = [rng.integers(0, 256, (BATCH, HEIGHT, WIDTH, 3), dtype=np.uint8)
-              for _ in range(N_REQUESTS)]
-    _build.reset_launch_counts()
+    in_update = _build.launch_counts()
     serve(codec, frames)
     counts = _build.launch_counts()
-    print(json.dumps({"launches_on_main_path": counts}), flush=True)
+    per_batch = {k: (v - in_update[k]) / N_REQUESTS for k, v in counts.items()}
+    print(json.dumps({"launches_on_main_path": counts,
+                      "launches_in_update": in_update,
+                      "launches_per_batch": per_batch}), flush=True)
     missing = [k for k, v in counts.items()
                if v <= 0 and k != "fused_block_tail"]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     if counts["fused_block_tail"]:
         raise AssertionError("K5 launched on path 1, where its switch is off")
+    if per_batch["select_rows"] or per_batch["eval_cdf"]:
+        raise AssertionError(f"K1 or K2 launched while serving: {per_batch}")
 
     wall_ms = stage_times(codec, frames)
     profile_request(codec, frames[0], wall_ms)

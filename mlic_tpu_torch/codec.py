@@ -1,8 +1,8 @@
 """The codec: the device backend of ``mlic_tpu/codec.py``, format v4.
 
 ``compress`` runs analyze, the encode pass and the on-device rANS encode
-(z section by integer-row gathers, y phases by the analytic Gaussian CDF),
-then assembles one stream per image.  ``decompress`` parses the streams
+(its prep, K7: z section by integer-row gathers, y phases by the analytic
+Gaussian CDF), then assembles one stream per image.  ``decompress`` parses the streams
 and runs the format-v4 device decode.  Both rANS directions run on the
 device; the host only parses and assembles bytes.
 
@@ -26,10 +26,9 @@ from mlic_tpu_torch.entropy import parametric
 from mlic_tpu_torch.entropy.cdf import get_scale_table
 from mlic_tpu_torch.entropy.device_rans import (
     MAX_ENCODE_LANES,
-    analytic_start_freq,
-    gather_start_freq,
     parametric_device_tables,
     rans_encode_compact,
+    rans_encode_prep,
     rans_encode_scan,
 )
 from mlic_tpu_torch.entropy.models import entropy_bottleneck_tables
@@ -37,41 +36,46 @@ from mlic_tpu_torch.entropy.stream import (
     assemble_streams,
     parse_global,
     stream_is_unified,
+    stream_lanes,
 )
 from mlic_tpu_torch.models.mlicpp import MLICPlusPlus
 
 MAX_LANES = MAX_ENCODE_LANES   # K3 and K4 take up to 1024 lanes an image
+SELF_CHECK_LANES = 512         # layout width of update's decode-shaped check
 
 
-def encode_inputs_v4(sym32, idx, z_flat, tables: dict, n_z_rows: int,
-                     z_rows_base: int):
-    """The encode back end's inputs for one batch, format v4 (codec.py:144),
-    in the caller's [B, n] layout.
+def auto_lanes(cfg, h: int, w: int, max_lanes: int = 256,
+               min_lanes: int = 16, sym_per_lane: int = 64) -> int:
+    """Size-adaptive rANS lane count (``Codec(n_lanes="auto")``; the port's
+    copy of ``mlic_tpu/codec.py:76``).
 
-    sym32/idx: int32 [B, total] y symbols and scale indexes (NHWC raveled);
-    z_flat: int32 [B, zh*zw*N] hyper-latent symbols, coded first with the
-    factorized-prior rows at ids ``z_rows_base + channel`` (``n_z_rows``
-    channels).  z by integer-table gathers, y by K1 + K2.  Returns the z
-    and y sections' (start int32, freq-1 int32, esc bool)."""
-    b, n_z = z_flat.shape
-    z_rows = z_rows_base + torch.arange(n_z, dtype=torch.int32,
-                                        device=z_flat.device) % n_z_rows
-    z = gather_start_freq(z_flat, z_rows[None].expand(b, n_z), tables)
-    y = analytic_start_freq(sym32, idx, tables["row_params"])
-    return z, y
+    Lane state costs 4 B a lane per image, and every coding phase pads its
+    symbols to a lane multiple, so small images want narrow codecs.  Picks
+    the largest power of two keeping >= ``sym_per_lane`` y symbols per
+    lane, clamped to [``min_lanes``, ``max_lanes``]: 256 at eval sizes
+    (>= ~256^2), 16 lanes for a 64^2 MLICPP_TINY tile, 32 for MLICPP_S.
+    Throughput-tuned serving passes an explicit count (512)."""
+    h64 = -(-int(h) // 64) * 64
+    w64 = -(-int(w) // 64) * 64
+    n_sym = (h64 // 16) * (w64 // 16) * cfg.M
+    lanes = 1 << (max(n_sym // sym_per_lane, 1).bit_length() - 1)
+    return max(min_lanes, min(max_lanes, lanes))
 
 
 def encode_rans_v4(sym32, idx, z_flat, tables: dict, n_lanes: int,
                    n_phases: int, z_rows_base: int) -> dict:
-    """On-device rANS encode of one batch, format v4: the prep above, then
-    the back end in two launches and no host synchronization -- the scan
-    (K3) reads the sections in place and the compaction (K6) lays out the
-    per-image word blocks and escapes.  Returns the dict that
-    ``entropy.stream.assemble_streams`` reads."""
+    """On-device rANS encode of one batch, format v4, in three launches and
+    no host synchronization: the prep (K7) turns the y symbols and scale
+    indexes (int32 [B, n_y], NHWC raveled) and the hyper-latent z_flat
+    (int32 [B, zh*zw*N], coded first with the factorized-prior rows at
+    ids ``z_rows_base + channel``) into (start, freq-1, escape) sections in
+    the caller's [B, n] layout; the scan (K3) reads them in place and the
+    compaction (K6) lays out the per-image word blocks and escapes.
+    Returns the dict that ``entropy.stream.assemble_streams`` reads."""
     z_flat, sym32 = z_flat.contiguous(), sym32.contiguous()
     n_z_rows = tables["cdf_rows"].shape[0] - z_rows_base
-    (st_z, fm_z, esc_z), (st_y, fm_y, esc_y) = encode_inputs_v4(
-        sym32, idx, z_flat, tables, n_z_rows, z_rows_base)
+    (st_z, fm_z, esc_z), (st_y, fm_y, esc_y) = rans_encode_prep(
+        sym32, idx.contiguous(), z_flat, tables, z_rows_base, n_z_rows)
     x, words, masks = rans_encode_scan(st_z, fm_z, st_y, fm_y, n_lanes,
                                        n_phases)
     return rans_encode_compact(x, words, masks, esc_z, z_flat, esc_y, sym32,
@@ -82,15 +86,23 @@ class Codec:
     """compress()/decompress() around an ``MLICPlusPlus`` with weights.
 
     ``n_lanes``: rANS lanes per image, a power of two <= 1024 (the stream
-    header carries it).  ``device``: None means CUDA."""
+    header carries it), or ``"auto"`` (the reference's default): resolved
+    once, from the first compressed image's size by ``auto_lanes`` or, for
+    a codec that decodes first, from the first stream's header.  Serving
+    passes an explicit 512.  ``device``: None means CUDA."""
 
-    def __init__(self, model: MLICPlusPlus, n_lanes: int = 512, device=None):
+    def __init__(self, model: MLICPlusPlus, n_lanes: int | str = "auto",
+                 device=None):
         self.device = resolve_device(device)
-        nl = int(n_lanes)
-        if not 1 <= nl <= MAX_LANES or nl & (nl - 1):
-            raise ValueError(
-                f"n_lanes must be a power of two in [1, {MAX_LANES}], got {nl}")
-        self.n_lanes = nl
+        self.n_lanes = None
+        if n_lanes != "auto":
+            nl = int(n_lanes)
+            if not 1 <= nl <= MAX_LANES or nl & (nl - 1):
+                raise ValueError(f"n_lanes must be a power of two in [1, "
+                                 f"{MAX_LANES}], got {nl}")
+            self.n_lanes = nl
+        self._auto_resolved = False
+        self._warned_auto_width = False
         self.model = model.to(self.device).eval()
         self.tables = None
         self.n_steps = 0
@@ -108,7 +120,7 @@ class Codec:
             "validate_tables (rows)": parametric.validate_tables(
                 table, lengths),
             "self_check (entries)": parametric.self_check(
-                params_t, table, lengths, self.n_lanes),
+                params_t, table, lengths, SELF_CHECK_LANES),
             "self_check_encode (entries)": parametric.self_check_encode(
                 params_t, table, lengths),
         }
@@ -130,6 +142,28 @@ class Codec:
         self.n_steps = parametric.bisect_steps(lengths)
         self.z_rows_base = n_g
         self.z_steps_row = int(np.ceil(np.log2(width)))
+
+    def _resolve_lanes(self, lanes: int) -> None:
+        """Fix an ``n_lanes="auto"`` codec to ``lanes``, once."""
+        self._auto_resolved = True
+        self.n_lanes = int(lanes)
+
+    def _check_auto_width(self, h: int, w: int) -> None:
+        """An auto codec keeps the width it resolved on its first image:
+        decode stays bit-exact at any width, but a much larger image then
+        codes with needlessly few lanes (longer decode scans).  Warns once
+        when an image would pick >= 4x the lanes (codec.py:615)."""
+        if not self._auto_resolved or self._warned_auto_width:
+            return
+        want = auto_lanes(self.model.cfg, h, w)
+        if want >= 4 * self.n_lanes:
+            import warnings
+            warnings.warn(
+                f"Codec resolved n_lanes={self.n_lanes} from its first "
+                f"image, but a {h}x{w} image would pick {want}; the lane "
+                "count is fixed per codec: construct a separate Codec for "
+                "large images to keep decode scans short.", stacklevel=3)
+            self._warned_auto_width = True
 
     def _stage(self, timings, name: str, t: float) -> float:
         """With a ``timings`` dict, wait for the device and record the ms
@@ -164,6 +198,11 @@ class Codec:
                              f"W multiples of 64, got {tuple(x.shape)}")
         if x.dtype != torch.uint8:
             x = x.float()
+        if self.n_lanes is None:
+            self._resolve_lanes(auto_lanes(self.model.cfg, x.shape[1],
+                                           x.shape[2]))
+        else:
+            self._check_auto_width(x.shape[1], x.shape[2])
         y, z_symbols = self.model.analyze(x)
         t = self._stage(timings, "analyze", t)
         y_hat, sym32, idx = self.model.codec_encode_pass(y, z_symbols)
@@ -198,7 +237,14 @@ class Codec:
         for s in strings[0]:
             if not stream_is_unified(s):
                 raise ValueError("not a format-v4 stream")
-            lanes, w, e = parse_global(s)
+            lanes = stream_lanes(s)
+            if lanes > MAX_LANES:
+                raise ValueError(
+                    f"stream has {lanes} lanes: the rANS kernels (K3, K4) "
+                    f"take at most {MAX_LANES} lanes an image")
+            if self.n_lanes is None:        # decode-only: follow the header
+                self._resolve_lanes(lanes)
+            _, w, e = parse_global(s)
             if lanes != self.n_lanes:
                 raise ValueError(f"stream has {lanes} lanes, codec built "
                                  f"for {self.n_lanes}")

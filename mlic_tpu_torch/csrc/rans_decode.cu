@@ -6,11 +6,16 @@
 // the integer-row step of the v4 z section (_step_rowtab :237) and the
 // renormalization (_renorm_global :152).  The escape patch stays in PyTorch.
 //
+// Both modes read one row index a position (rows, int32 [S, B*n_lanes]).
 // Per step and lane:
-//  * parametric mode (cols != nullptr): the six pre-selected row columns
-//    (m, b, A, C, B, L) of this position give the slot of cf on the shared
-//    cdf_eval (cdf.cuh) over [0, L]; cf == 2^16-1 is the escape (its cdf
-//    slot has frequency 1 in every row);
+//  * parametric mode: the row's six constants (m, b, A, C, B, L), selected
+//    from the Gaussian row-parameter table that each block stages in its
+//    shared memory (<= 128 rows x 6 f32; rows outside the table take row 0,
+//    as select_rows does), give the slot of cf on the shared cdf_eval
+//    (cdf.cuh) over [0, L]; cf == 2^16-1 is the escape (its cdf slot has
+//    frequency 1 in every row).  Selecting in shared memory reads 4 B a
+//    position, where six selected f32 planes in device memory would be
+//    24 B, and needs no row-select launch before each phase;
 //  * row-table mode: the slot of cf in the integer CDF row cdf_rows[row]
 //    (factorized-prior rows of the z section);
 //  * x = freq * (x >> 16) + cf - start (uint32), then the lanes whose state
@@ -21,8 +26,9 @@
 // and written to x_out/ptr_out, so one decode chains the z section and the
 // y phases through device tensors.
 //
-// Bound on this card: bytes, 29 B per position (0.0018 ms per y phase of
-// [6, 48, 4096]); the f32 work is as small.  What sets the time is the
+// Bound on this card: bytes, 9 B per position (a row index, the symbol
+// and escape flag written, a share of the words); the f32 work is as
+// small.  What sets the time is the
 // latency of the serial chain: S steps, each a search of the CDF and a
 // rank across the image's lanes.  The first version searched by a
 // 12-level bisection per lane and ran one block per image, on 8 of 132
@@ -78,6 +84,8 @@ namespace {
 
 constexpr int kMaxThreads = 512;   // per block
 constexpr int kMaxCluster = 8;     // the portable cluster size
+constexpr int kMaxParamRows = 128; // rows of the Gaussian row-parameter table
+constexpr int kCols = 6;           // m, b, A, C, B, L
 constexpr unsigned kFullWarp = 0xffffffffu;
 
 // Threads a lane: 8 where an image's lanes fit a cluster that way (up to
@@ -171,15 +179,16 @@ __device__ __forceinline__ int first_round(const Cdf& cdf, int hi, int t) {
 }
 
 // One launch decodes S steps of every lane of every image: parametric
-// (kRows false: cols) or by integer rows (kRows true: rows, cdf_rows).
+// (kRows false: row_params) or by integer rows (kRows true: cdf_rows).
 template <int T, bool kRows>
 __global__ void __launch_bounds__(kMaxThreads) rans_decode_kernel(
     const uint16_t* __restrict__ words, long long n_words,
     const long long* __restrict__ x_in, const int* __restrict__ ptr_in,
     long long* __restrict__ x_out, int* __restrict__ ptr_out,
     int* __restrict__ sym, bool* __restrict__ esc, int S, int n_lanes,
-    int n_images, const float* __restrict__ cols, int rounds,
-    const int* __restrict__ rows, const int* __restrict__ cdf_rows, int width,
+    int n_images, const int* __restrict__ rows, int rounds,
+    const float* __restrict__ row_params, int n_param_rows,
+    const int* __restrict__ cdf_rows, int width,
     const int* __restrict__ max_value_t, const int* __restrict__ offsets_t) {
   // Readers per warp, double-buffered by the step's parity so that one
   // block barrier a step orders their writes and reads.  slots[parity][r]
@@ -188,6 +197,7 @@ __global__ void __launch_bounds__(kMaxThreads) rans_decode_kernel(
   // its own copy until all tags match (no cluster-wide barrier a step).
   __shared__ int warp_counts[2][kMaxThreads / 32];
   __shared__ unsigned slots[2][kMaxCluster];
+  __shared__ float tab[kRows ? 1 : kMaxParamRows * kCols];
   cg::cluster_group cluster = cg::this_cluster();
   const int n_blocks = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -211,25 +221,29 @@ __global__ void __launch_bounds__(kMaxThreads) rans_decode_kernel(
   const unsigned below = leaders & ((1u << base) - 1u);
   const long long BL = static_cast<long long>(n_images) * n_lanes;
   const long long g = static_cast<long long>(b) * n_lanes + l;
-  const long long plane = static_cast<long long>(S) * BL;
+  if constexpr (!kRows) {
+    for (int i = tid; i < n_param_rows * kCols; i += blockDim.x)
+      tab[i] = row_params[i];
+    __syncthreads();
+  }
   if (n_blocks > 1) {
     if (tid < 2 * kMaxCluster) (&slots[0][0])[tid] = 0xffffffffu;
     cluster.sync();  // every block's slots are set before any store
   }
 
-  // Table entries of the next two steps, loaded two steps ahead (the last
-  // step's stand in past the end), and this thread's first-round cdf
-  // value of the coming step.
-  float nxt[6] = {}, nn[6] = {};
+  // Row indexes of the next two steps, loaded two steps ahead (the last
+  // step's stand in past the end), the next step's constants from the
+  // table in shared memory, and this thread's first-round cdf value of the
+  // coming step.
+  float nxt[kCols] = {};
   int row_nxt = 0, row_nn = 0;
-  auto fetch = [&](int s, float (&c)[6], int& row) {
-    const long long i = static_cast<long long>(min(s, S - 1)) * BL + g;
-    if constexpr (kRows) {
-      row = rows[i];
-    } else {
+  auto fetch = [&](int s) {
+    return rows[static_cast<long long>(min(s, S - 1)) * BL + g];
+  };
+  auto select_row = [&](int row, float (&c)[kCols]) {
+    if (row < 0 || row >= n_param_rows) row = 0;
 #pragma unroll
-      for (int k = 0; k < 6; ++k) c[k] = cols[k * plane + i];
-    }
+    for (int k = 0; k < kCols; ++k) c[k] = tab[row * kCols + k];
   };
   auto first = [&]() {
     if constexpr (kRows) {
@@ -246,8 +260,9 @@ __global__ void __launch_bounds__(kMaxThreads) rans_decode_kernel(
   };
   int v_first = 0, v_next;
   if (S > 0) {
-    fetch(0, nxt, row_nxt);
-    fetch(1, nn, row_nn);
+    row_nxt = fetch(0);
+    row_nn = fetch(1);
+    if constexpr (!kRows) select_row(row_nxt, nxt);
     v_first = first();
   }
 
@@ -266,16 +281,15 @@ __global__ void __launch_bounds__(kMaxThreads) rans_decode_kernel(
   for (int s = 0; s < S; ++s) {
     const long long i = static_cast<long long>(s) * BL + g;
     const int cf = static_cast<int>(x & 0xffffu);
-    // this step's entries; the next one's move up, the one after is loaded
-    float cur[6];
+    // this step's entries; the next one's move up (its constants from
+    // shared memory, its row loaded a step ago), the one after is loaded
+    float cur[kCols];
 #pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      cur[k] = nxt[k];
-      nxt[k] = nn[k];
-    }
+    for (int k = 0; k < kCols; ++k) cur[k] = nxt[k];
     const int row = row_nxt;
     row_nxt = row_nn;
-    fetch(s + 2, nn, row_nn);
+    if constexpr (!kRows) select_row(row_nxt, nxt);
+    row_nn = fetch(s + 2);
     int lo = 0, v_lo = 0, hi, v_hi, out_sym;
     uint32_t start, freq;
     bool e;
@@ -358,15 +372,15 @@ template <int T>
 cudaError_t launch(const uint16_t* words, long long n_words,
                    const long long* x_in, const int* ptr_in, long long* x_out,
                    int* ptr_out, int* sym, bool* esc, int S, int n_images,
-                   int n_lanes, const float* cols, int n_steps,
-                   const int* rows, const int* cdf_rows, int width,
-                   const int* max_value, const int* offsets,
-                   cudaStream_t stream) {
+                   int n_lanes, int mode, const int* rows, int n_steps,
+                   const float* row_params, int n_param_rows,
+                   const int* cdf_rows, int width, const int* max_value,
+                   const int* offsets, cudaStream_t stream) {
   const int blocks = cluster_blocks(n_lanes, T);
   if (blocks == 0) return cudaErrorInvalidValue;
   const int rounds = (n_steps + log2_int(T) - 1) / log2_int(T);
-  auto kernel = rows != nullptr ? rans_decode_kernel<T, true>
-                                : rans_decode_kernel<T, false>;
+  auto kernel = mode == 1 ? rans_decode_kernel<T, true>
+                          : rans_decode_kernel<T, false>;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_images * blocks);
   cfg.blockDim = dim3((n_lanes / blocks * T + 31) / 32 * 32);
@@ -383,7 +397,7 @@ cudaError_t launch(const uint16_t* words, long long n_words,
   // once per kernel and cluster shape, 0 unknown, 1 yes, -1 no; the answer
   // does not change within a process).
   static int placeable[2][kMaxCluster + 1][kMaxThreads / 32 + 1] = {};
-  int& ok = placeable[rows != nullptr][blocks][cfg.blockDim.x / 32];
+  int& ok = placeable[mode][blocks][cfg.blockDim.x / 32];
   if (ok == 0) {
     int n_clusters = 0;
     const cudaError_t err =
@@ -395,9 +409,10 @@ cudaError_t launch(const uint16_t* words, long long n_words,
     ok = n_clusters > 0 ? 1 : -1;
   }
   if (ok < 0) return cudaErrorLaunchOutOfResources;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, words, n_words, x_in, ptr_in, x_out,
-                           ptr_out, sym, esc, S, n_lanes, n_images, cols,
-                           rounds, rows, cdf_rows, width, max_value, offsets);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, words, n_words, x_in, ptr_in, x_out, ptr_out, sym, esc, S,
+      n_lanes, n_images, rows, rounds, row_params, n_param_rows, cdf_rows,
+      width, max_value, offsets);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return err;
@@ -405,12 +420,20 @@ cudaError_t launch(const uint16_t* words, long long n_words,
   return cudaGetLastError();
 }
 
-int check_args(long long n_words, int S, int n_images, int n_lanes,
-               const float* cols, const int* rows) {
+int check_args(long long n_words, int S, int n_images, int n_lanes, int mode,
+               const int* rows, const float* row_params, int n_param_rows,
+               const int* cdf_rows, int width, const int* max_value,
+               const int* offsets) {
   // Lane counts: below 32, or whole warps up to 1024 (the codec's rule).
-  if (n_lanes < 1 || n_lanes > 1024 || (n_lanes >= 32 && n_lanes % 32) ||
-      n_images < 1 || n_words < 1 || S < 0 || S >= (1 << 21) - 1 ||
-      (cols == nullptr && rows == nullptr)) {
+  const bool lanes_ok = n_lanes >= 1 && n_lanes <= 1024 &&
+                        (n_lanes < 32 || n_lanes % 32 == 0);
+  const bool tables_ok =
+      mode == 0 ? row_params != nullptr && n_param_rows >= 1 &&
+                      n_param_rows <= kMaxParamRows
+                : mode == 1 && cdf_rows != nullptr && width >= 2 &&
+                      max_value != nullptr && offsets != nullptr;
+  if (!lanes_ok || !tables_ok || rows == nullptr || n_images < 1 ||
+      n_words < 1 || S < 0 || S >= (1 << 21) - 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return 0;
@@ -418,19 +441,25 @@ int check_args(long long n_words, int S, int n_images, int n_lanes,
 
 }  // namespace
 
+// mode 0: parametric (row_params f32 [n_param_rows, 6]); mode 1: integer
+// rows (cdf_rows int32 [*, width], max_value, offsets).  rows int32
+// [S, n_images * n_lanes] in both.
 extern "C" int rans_decode_launch(
     const uint16_t* words, long long n_words, const long long* x_in,
     const int* ptr_in, long long* x_out, int* ptr_out, int* sym, bool* esc,
-    int S, int n_images, int n_lanes, const float* cols, int n_steps,
-    const int* rows, const int* cdf_rows, int width, const int* max_value,
-    const int* offsets, void* stream) {
-  const int rc = check_args(n_words, S, n_images, n_lanes, cols, rows);
+    int S, int n_images, int n_lanes, int mode, const int* rows, int n_steps,
+    const float* row_params, int n_param_rows, const int* cdf_rows, int width,
+    const int* max_value, const int* offsets, void* stream) {
+  const int rc = check_args(n_words, S, n_images, n_lanes, mode, rows,
+                            row_params, n_param_rows, cdf_rows, width,
+                            max_value, offsets);
   if (rc != 0) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto run = [&](auto fn) {
     return static_cast<int>(fn(words, n_words, x_in, ptr_in, x_out, ptr_out,
-                               sym, esc, S, n_images, n_lanes, cols, n_steps,
-                               rows, cdf_rows, width, max_value, offsets, s));
+                               sym, esc, S, n_images, n_lanes, mode, rows,
+                               n_steps, row_params, n_param_rows, cdf_rows,
+                               width, max_value, offsets, s));
   };
   return lane_group(n_lanes) == 8 ? run(launch<8>) : run(launch<4>);
 }

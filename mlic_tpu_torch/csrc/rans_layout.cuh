@@ -9,8 +9,9 @@
 // a section covers its entries [js * n_lanes, (js + 1) * n_lanes), and the
 // tail of a section's last step is pad.  The kernels compute a position's
 // source from these numbers instead of reading a laid-out copy: K6 by
-// encode_source below, K3 by the same arithmetic walked step by step
-// (``device_rans.encode_sources_plain`` is it in PyTorch).
+// encode_run below, a mask word's 32 positions at once, K3 by the same
+// arithmetic walked step by step (``device_rans.encode_sources_plain`` is
+// it in PyTorch).
 #pragma once
 
 #include <stdint.h>
@@ -57,19 +58,29 @@ inline bool make_encode_layout(EncodeLayout* lay, int n_images, int n_lanes,
   return true;
 }
 
-// Source of position (step s, image b, lane l): the flat index into the z
-// section (``*in_y`` false) or the y section (``*in_y`` true), or -1 for a
-// pad.  One integer division by steps_per for a y step.
-__device__ __forceinline__ int encode_source(const EncodeLayout& lay, int s,
-                                             int b, int l, bool* in_y) {
+// The run of positions (step s, image b, lanes l0 .. l0 + 31) that one
+// 32-lane mask word covers: returns the flat source index of lane l0 in
+// the z section (``*in_y`` false) or the y section (``*in_y`` true) and
+// sets ``*valid`` to the number of the run's lanes that are no pad, whose
+// sources follow one another (l0 is a multiple of 32).
+__device__ __forceinline__ int encode_run(const EncodeLayout& lay, int s,
+                                          int b, int l0, bool* in_y,
+                                          int* valid) {
+  int base, j, n;
   if (s < lay.steps_z) {
     *in_y = false;
-    const int j = (s << lay.lane_shift) + l;
-    return j < lay.n_z ? b * lay.n_z + j : -1;
+    base = b * lay.n_z;
+    j = (s << lay.lane_shift) + l0;
+    n = lay.n_z;
+  } else {
+    *in_y = true;
+    const int t = s - lay.steps_z;
+    const int k = t / lay.steps_per;
+    base = b * lay.n_y + k * lay.n_per;
+    j = ((t - k * lay.steps_per) << lay.lane_shift) + l0;
+    n = lay.n_per;
   }
-  *in_y = true;
-  const int t = s - lay.steps_z;
-  const int k = t / lay.steps_per;
-  const int j = ((t - k * lay.steps_per) << lay.lane_shift) + l;
-  return j < lay.n_per ? b * lay.n_y + k * lay.n_per + j : -1;
+  const int lanes = lay.n_lanes < 32 ? lay.n_lanes : 32;
+  *valid = n - j < 0 ? 0 : (n - j < lanes ? n - j : lanes);
+  return base + j;
 }

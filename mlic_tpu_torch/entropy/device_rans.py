@@ -8,15 +8,17 @@ per image, 2*n_lanes state words, then the renorm words in the decoder's
 (step, lane) consumption order; out-of-support values (escapes) travel in
 an int32 side channel.
 
-Kernels here: K3 ``rans_encode_scan`` (replaces ``encode_scan_prepped``,
-:525, and the ``phase_order`` layout in front of it), K6
-``rans_encode_compact`` (replaces ``compact_streams_global``, :602) and K4
-``rans_decode_phase`` (replaces the ``lax.scan`` of
-``make_decoder(fmt="global")``, :169).  K3 and K6 read the prep's [B, n]
-sections through the index arithmetic of ``encode_sources_plain``.  The
-plain versions use int64 masked to 32 bits for the uint32 state.  16-bit
-words, starts and frequencies are kept as int16 tensors holding uint16
-bits.
+Kernels here: K7 ``rans_encode_prep`` (replaces ``analytic_start_freq``,
+:419, and ``_gather_start_freq``, :468, with the row select of
+``select_rows`` in its shared memory), K3 ``rans_encode_scan`` (replaces
+``encode_scan_prepped``, :525, and the ``phase_order`` layout in front of
+it), K6 ``rans_encode_compact`` (replaces ``compact_streams_global``, :602)
+and K4 ``rans_decode_phase`` (replaces the ``lax.scan`` of
+``make_decoder(fmt="global")``, :169; selects its rows' Gaussian constants
+in shared memory).  K3 and K6 read the prep's [B, n] sections through the
+index arithmetic of ``encode_sources_plain``.  The plain versions use
+int64 masked to 32 bits for the uint32 state.  16-bit words, starts and
+frequencies are kept as int16 tensors holding uint16 bits.
 """
 
 from __future__ import annotations
@@ -24,9 +26,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mlic_tpu_torch.entropy.parametric import eval_cdf, eval_cdf_plain
+from mlic_tpu_torch.entropy.parametric import eval_cdf_plain
 from mlic_tpu_torch.ops._build import KERNELS, stream_handle
-from mlic_tpu_torch.ops.select_rows import select_rows
+from mlic_tpu_torch.ops.select_rows import MAX_ROWS, select_rows_plain
 
 _RANS_L = 1 << 16
 _MASK16 = (1 << 16) - 1
@@ -35,6 +37,7 @@ _MASK32 = (1 << 32) - 1
 # family: symbol 0, start 0, freq 2^16-1.
 _PAD_START = 0
 _PAD_FREQM1 = (1 << 16) - 2
+PREP_KERNEL = KERNELS["rans_encode_prep"]
 ENCODE_KERNEL = KERNELS["rans_encode_scan"]
 COMPACT_KERNEL = KERNELS["rans_encode_compact"]
 DECODE_KERNEL = KERNELS["rans_decode_phase"]
@@ -63,19 +66,21 @@ def parametric_device_tables(params: np.ndarray, cdf_lengths: np.ndarray,
 
 
 def analytic_start_freq(sym: torch.Tensor, row: torch.Tensor,
-                        row_params: torch.Tensor):
+                        row_params: torch.Tensor, select=select_rows_plain,
+                        cdf=eval_cdf_plain):
     """(start, freq-1, esc) per symbol from the analytic Gaussian CDF
-    (device_rans.py:419): row constants by ``select_rows`` (K1), cdf at
-    slot and slot+1 in one ``eval_cdf`` call (K2).  Returns int32, int32,
-    bool in ``sym``'s shape."""
-    m, b, A, C, Bc, Lf = select_rows(row.to(torch.int32).contiguous(),
-                                     row_params)
+    (device_rans.py:419): row constants by ``select``, cdf at slot and
+    slot+1 in one ``cdf`` call.  Returns int32, int32, bool in ``sym``'s
+    shape.  With ``select_rows`` and ``eval_cdf`` (K1 and K2) it is the
+    composition K7 replaced on the card."""
+    m, b, A, C, Bc, Lf = select(row.to(torch.int32).contiguous(),
+                                row_params)
     L = Lf.to(torch.int32)               # support size (exact in f32)
     off = -((L - 1) >> 1)
     v = sym.to(torch.int32) - off
     esc = (v < 0) | (v >= L)
     slot = torch.where(esc, L, v)
-    both = eval_cdf(torch.stack([slot, slot + 1]), m, b, A, C, Bc)
+    both = cdf(torch.stack([slot, slot + 1]), m, b, A, C, Bc)
     return both[0], both[1] - both[0] - 1, esc
 
 
@@ -90,6 +95,75 @@ def gather_start_freq(sym: torch.Tensor, row: torch.Tensor, tables: dict):
     start = tables["cdf_rows"][row, slot]
     nxt = tables["cdf_rows"][row, slot + 1]
     return start, nxt - start - 1, esc
+
+
+def encode_prep_plain(sym, idx, z_flat, tables: dict, z_rows_base: int,
+                      n_z_rows: int, select=select_rows_plain,
+                      cdf=eval_cdf_plain):
+    """The plain version of K7: the z section by ``gather_start_freq`` on
+    rows ``z_rows_base + j % n_z_rows`` (j the flat index within an
+    image), the y section by ``analytic_start_freq`` with ``select`` and
+    ``cdf``.  Returns ((start, freq-1, esc) of z, the same of y)."""
+    b, n_z = z_flat.shape
+    if n_z:
+        z_rows = z_rows_base + torch.arange(n_z, dtype=torch.int32,
+                                            device=z_flat.device) % n_z_rows
+        z = gather_start_freq(z_flat, z_rows[None].expand(b, n_z), tables)
+    else:
+        empty = z_flat.new_empty((b, 0), dtype=torch.int32)
+        z = (empty, empty.clone(), empty.bool())
+    return z, analytic_start_freq(sym, idx, tables["row_params"], select, cdf)
+
+
+def rans_encode_prep(sym, idx, z_flat, tables: dict, z_rows_base: int = 0,
+                     n_z_rows: int = 1):
+    """K7 for CUDA tensors, ``encode_prep_plain`` for CPU tensors: the rANS
+    encode's prep in one launch.  ``sym``/``idx`` int32 [B, n_y] y symbols
+    and scale indexes into ``tables["row_params"]`` (f32 [<= 128, 6],
+    staged in the kernel's shared memory); ``z_flat`` int32 [B, n_z] coded
+    with the integer rows ``z_rows_base + j % n_z_rows`` of
+    ``tables["cdf_rows"]`` (with ``max_value``, ``offsets``; read only when
+    n_z > 0).  Returns ((start int32, freq-1 int32, esc bool) of z [B,
+    n_z], the same of y [B, n_y])."""
+    i32 = torch.int32
+    rp = tables["row_params"]
+    if sym.dim() != 2 or z_flat.dim() != 2 or z_flat.shape[0] != sym.shape[0]:
+        raise ValueError("rans_encode_prep: sym must be [B, n_y] and z_flat "
+                         "[B, n_z]")
+    B, n_y = sym.shape
+    n_z = z_flat.shape[1]
+    if rp.dim() != 2 or rp.shape[1] != 6 or not 1 <= rp.shape[0] <= MAX_ROWS:
+        raise ValueError(f"rans_encode_prep: row_params must be f32 "
+                         f"[<= {MAX_ROWS}, 6], got {tuple(rp.shape)}")
+    specs = [(sym, i32, (B, n_y)), (idx, i32, (B, n_y)),
+             (z_flat, i32, (B, n_z)), (rp, torch.float32, tuple(rp.shape))]
+    if n_z:
+        cdf_rows, mv, off = (tables[k] for k in ("cdf_rows", "max_value",
+                                                 "offsets"))
+        n_rows = cdf_rows.shape[0]
+        if n_z_rows < 1 or z_rows_base < 0 \
+                or z_rows_base + n_z_rows > n_rows:
+            raise ValueError("rans_encode_prep: z rows outside cdf_rows")
+        specs += [(cdf_rows, i32, tuple(cdf_rows.shape)),
+                  (mv, i32, (n_rows,)), (off, i32, (n_rows,))]
+    if B * max(n_y, n_z) >= 1 << 31:
+        raise ValueError("rans_encode_prep: sections exceed int32 indexing")
+    _check_tensors("rans_encode_prep", *specs)
+    dev = sym.device
+    if dev.type == "cpu":
+        return encode_prep_plain(sym, idx, z_flat, tables, z_rows_base,
+                                 n_z_rows)
+    if dev.type != "cuda":
+        raise ValueError("rans_encode_prep: inputs must be on a CUDA device")
+    outs = [sym.new_empty((B, n), dtype=dt) for n in (n_z, n_y)
+            for dt in (i32, i32, torch.bool)]
+    zt = (cdf_rows.data_ptr(), cdf_rows.shape[1], mv.data_ptr(),
+          off.data_ptr()) if n_z else (None, 0, None, None)
+    PREP_KERNEL.launch(sym.data_ptr(), idx.data_ptr(), z_flat.data_ptr(),
+                       rp.data_ptr(), rp.shape[0], *zt, z_rows_base,
+                       n_z_rows, B, n_y, n_z, *(t.data_ptr() for t in outs),
+                       stream_handle(sym))
+    return tuple(outs[:3]), tuple(outs[3:])
 
 
 def phase_order(flat: torch.Tensor, n_lanes: int, pad_value=0) -> torch.Tensor:
@@ -121,15 +195,15 @@ def encode_steps(n_z: int, n_per: int, n_phases: int, n_lanes: int) -> tuple:
 
 
 def encode_sources_plain(n_images: int, n_z: int, n_per: int, n_phases: int,
-                         n_lanes: int):
+                         n_lanes: int, device=None):
     """Where each position (step, image, lane) reads its symbol, by the
-    index arithmetic of K3 and K6 (``encode_source`` in rans_layout.cuh):
+    index arithmetic of K3 and K6 (``encode_run`` in rans_layout.cuh):
     returns (in_y bool [S, L], idx int64 [S, L]), idx the flat index into
     the z section [B, n_z] or the y section [B, n_phases * n_per], -1 for a
     pad.  The CPU tests hold it against ``phase_order``."""
     sz, sp, S = encode_steps(n_z, n_per, n_phases, n_lanes)
-    s = torch.arange(S)[:, None]
-    g = torch.arange(n_images * n_lanes)[None, :]
+    s = torch.arange(S, device=device)[:, None]
+    g = torch.arange(n_images * n_lanes, device=device)[None, :]
     b, l = g // n_lanes, g % n_lanes
     in_y = (s >= sz).expand(S, g.shape[1])
     t = (s - sz).clamp(min=0)
@@ -148,12 +222,13 @@ def encode_layout_plain(z: torch.Tensor, y: torch.Tensor, n_lanes: int,
     """The z [B, n_z] and y [B, n_phases * n_per] sections in position
     order [S, B*n_lanes] by ``encode_sources_plain``, pads ``pad_value``."""
     in_y, idx = encode_sources_plain(z.shape[0], z.shape[1],
-                                     y.shape[1] // n_phases, n_phases, n_lanes)
+                                     y.shape[1] // n_phases, n_phases, n_lanes,
+                                     z.device)
     flat = torch.cat([z.reshape(-1), y.reshape(-1),
                       torch.full((1,), pad_value, dtype=z.dtype,
                                  device=z.device)])
     where = torch.where(idx < 0, flat.numel() - 1, idx + in_y * z.numel())
-    return flat[where.to(z.device)]
+    return flat[where]
 
 
 def _popc32(v: torch.Tensor) -> torch.Tensor:
@@ -357,6 +432,68 @@ def compact_streams_global(x, words, masks, esc, sym, n_images: int) -> dict:
             "ecount": esc_i.sum(1, dtype=torch.int32)}
 
 
+COMPACT_THREADS = 256       # K6's block: one 32-lane mask word a thread
+STATUS_AGGREGATE, STATUS_PREFIX = 1, 2
+_STATUS_WORDS = 3           # int64s an item: tag, aggregate, prefix
+_compact_state = {}         # (device index, stream) -> (control, status)
+
+
+def compact_plan(n_lanes: int, steps: int) -> tuple:
+    """K6's work items (``rans_compact.cu``): an item is one image's run of
+    ``COMPACT_THREADS // W`` steps (W mask words a step), one mask word a
+    thread; items are numbered image-major.  Returns (steps an item, items
+    an image); an image of no steps is one empty item (its state words)."""
+    W = -(-n_lanes // 32)
+    per = COMPACT_THREADS // W
+    return per, max(-(-steps // per), 1)
+
+
+def compact_status_tag(epoch: int, flag: int) -> int:
+    """The tag K6 publishes an item's status under: ``epoch << 2 | flag``
+    (flag 1 aggregate, 2 inclusive prefix).  Zeroed memory (flag 0) and a
+    tag of an earlier launch's epoch are never taken as ready."""
+    return (epoch << 2) | flag
+
+
+def compact_items_plain(masks, esc_pos, n_lanes: int) -> dict:
+    """K6's item arithmetic in plain PyTorch: each item's (words, escapes)
+    aggregate from K3's masks and the position-order escape flags, the
+    exclusive prefix over all items that the look-back gives each item,
+    and img_n / ecount from the inclusive prefixes at each image's last
+    item.  The CPU tests hold it against ``compact_streams_global``."""
+    S, B, W = masks.shape
+    per, ipi = compact_plan(n_lanes, S)
+    emasks = emits_to_masks(esc_pos, n_lanes)
+    counts = torch.stack([_popc32(masks.long() & _MASK32),
+                          _popc32(emasks.long() & _MASK32)], -1)
+    pad = ipi * per - S
+    counts = torch.cat([counts, counts.new_zeros((pad, B, W, 2))])
+    agg = counts.reshape(ipi, per, B, W, 2).sum((1, 3)).permute(1, 0, 2) \
+        .reshape(B * ipi, 2)
+    incl = torch.cumsum(agg, 0)
+    last = incl[ipi - 1::ipi]
+    img = last - torch.cat([last.new_zeros((1, 2)), last[:-1]])
+    return {"aggregate": agg, "exclusive": incl - agg,
+            "img_n": img[:, 0] + 2 * n_lanes, "ecount": img[:, 1]}
+
+
+def _compact_buffers(dev, stream: int, n_items: int):
+    """K6's control block (ticket, done count, epoch) and item statuses on
+    ``dev`` for launches on ``stream``, zeroed when first made and when the
+    statuses grow; K6 itself leaves the control block ready for the next
+    launch, so a call costs no set-up launch and a CUDA graph may replay
+    it."""
+    key = (dev.index, stream)
+    ctl, st = _compact_state.get(key, (None, None))
+    if ctl is None:
+        ctl = torch.zeros(2, dtype=torch.int64, device=dev)
+    if st is None or st.numel() < _STATUS_WORDS * n_items:
+        st = torch.zeros(_STATUS_WORDS * max(n_items, 4096),
+                         dtype=torch.int64, device=dev)
+    _compact_state[key] = (ctl, st)
+    return ctl, st
+
+
 def rans_encode_compact(x, words, masks, z_esc, z_sym, y_esc, y_sym,
                         n_lanes: int, n_phases: int) -> dict:
     """K6 for CUDA tensors, ``compact_streams_global`` for CPU tensors:
@@ -364,7 +501,8 @@ def rans_encode_compact(x, words, masks, z_esc, z_sym, y_esc, y_sym,
     z [B, n_z] and y [B, n_phases * n_per] -> {"buf", "img_n", "ebuf",
     "ecount"} as ``compact_streams_global`` returns them, except that on
     the card ``ebuf`` holds S*L entries of which the first sum(ecount) are
-    used.  Nothing is read back to the host."""
+    used.  One launch of ``B * items an image`` blocks (``compact_plan``),
+    nothing read back to the host."""
     B, n_z, n_per, S, zs, ys = _encode_geometry(
         "rans_encode_compact", z_sym, y_sym, n_lanes, n_phases)
     L, W = B * n_lanes, -(-n_lanes // 32)
@@ -382,22 +520,19 @@ def rans_encode_compact(x, words, masks, z_esc, z_sym, y_esc, y_sym,
     if dev.type != "cuda":
         raise ValueError("rans_encode_compact: inputs must be on a CUDA "
                          "device")
-    # scratch: K6's escape masks [S * B * W], then its item counts (int2,
-    # so at an even offset)
-    n_em = S * B * W + (S * B * W) % 2
-    scratch = x.new_empty(n_em + 2 * B * max(S, 1), dtype=i32)
+    per, ipi = compact_plan(n_lanes, S)
+    stream = stream_handle(x)
+    ctl, status = _compact_buffers(dev, stream, B * ipi)
     counts = x.new_empty((2, B), dtype=i32)
     out = {"buf": x.new_empty(S * L + 2 * L, dtype=torch.int16),
            "img_n": counts[0], "ebuf": x.new_empty(max(S * L, 1), dtype=i32),
            "ecount": counts[1]}
-    emasks = scratch.data_ptr()
     COMPACT_KERNEL.launch(
         masks.data_ptr(), words.data_ptr(), x.data_ptr(), z_esc.data_ptr(),
-        z_sym.data_ptr(), y_esc.data_ptr(), y_sym.data_ptr(), emasks,
-        emasks + 4 * n_em, out["buf"].data_ptr(),
-        out["img_n"].data_ptr(), out["ebuf"].data_ptr(),
-        out["ecount"].data_ptr(), B, n_lanes, n_z, n_per, n_phases,
-        stream_handle(x))
+        z_sym.data_ptr(), y_esc.data_ptr(), y_sym.data_ptr(), ctl.data_ptr(),
+        status.data_ptr(), out["buf"].data_ptr(), out["img_n"].data_ptr(),
+        out["ebuf"].data_ptr(), out["ecount"].data_ptr(), B, n_lanes, n_z,
+        n_per, n_phases, per, ipi, stream)
     return out
 
 
@@ -431,26 +566,30 @@ def _renorm_global_plain(x, img_ptr, words):
 
 
 def rans_decode_phase_plain(words, x, img_ptr, n_lanes: int, n_steps: int,
-                            cols=None, rows=None, cdf_rows=None,
-                            max_value=None, offsets=None):
-    """Decode S steps over B*n_lanes lanes (the plain version of K4).
+                            rows, tables: dict, parametric: bool):
+    """Decode S steps over B*n_lanes lanes (the plain version of K4) at
+    ``rows`` int32 [S, B*n_lanes].
 
-    Parametric mode: ``cols`` f32 [6, S, B*n_lanes] (m, b, A, C, B, L) from
-    ``select_rows``; ``n_steps``-level bisection on ``eval_cdf_plain``.
-    Row-table mode: ``rows`` int32 [S, B*n_lanes] into the integer
-    ``cdf_rows`` with ``max_value``/``offsets``.
+    Parametric: each row's constants (m, b, A, C, B, L) by
+    ``select_rows_plain`` from ``tables["row_params"]``; ``n_steps``-level
+    bisection on ``eval_cdf_plain``.  Row-table mode: bisection over the
+    integer ``cdf_rows`` with ``max_value``/``offsets``.
     Returns (sym int32 [S, BL], esc bool [S, BL], x int64, img_ptr int32);
     escaped positions hold a placeholder symbol until the escape patch."""
-    S = cols.shape[1] if cols is not None else rows.shape[0]
+    S = rows.shape[0]
     BL = x.shape[0]
     dev = x.device
+    cols = select_rows_plain(rows, tables["row_params"]) if parametric \
+        else None
+    cdf_rows, max_value, offsets = (None if parametric else tables[k] for k
+                                    in ("cdf_rows", "max_value", "offsets"))
     sym = torch.empty((S, BL), dtype=torch.int32, device=dev)
     esc_out = torch.empty((S, BL), dtype=torch.bool, device=dev)
     for s in range(S):
         cf = (x & _MASK16).to(torch.int32)
         lo = torch.zeros_like(cf)
         v_lo = torch.zeros_like(cf)
-        if cols is not None:
+        if parametric:
             pm, pb, pA, pC, pB, pL = cols[:, s]
             max_value_s = pL.to(torch.int32)
             esc = cf == _MASK16
@@ -477,7 +616,7 @@ def rans_decode_phase_plain(words, x, img_ptr, n_lanes: int, n_steps: int,
             v_lo = torch.where(take, v_mid, v_lo)
             hi = torch.where(keep, mid, hi)
             v_hi = torch.where(keep, v_mid, v_hi)
-        if cols is not None:
+        if parametric:
             start = torch.where(esc, _MASK16, v_lo).long()
             freq = torch.where(esc, 1, v_hi - v_lo).long()
             sym[s] = lo - ((max_value_s - 1) >> 1)
@@ -589,9 +728,11 @@ def decode_slot_plain(cf, group: int, n_steps: int, cols_s=None, row=None,
 
 
 def rans_decode_phase(words, x, img_ptr, n_lanes: int, n_steps: int,
-                      cols=None, rows=None, cdf_rows=None, max_value=None,
-                      offsets=None):
-    """K4 for CUDA tensors, the plain version for CPU tensors.  A group of
+                      rows, tables: dict, parametric: bool):
+    """K4 for CUDA tensors, the plain version for CPU tensors, at ``rows``
+    int32 [S, B*n_lanes]: parametric (the rows' Gaussian constants
+    selected from ``tables["row_params"]``, staged in each block's shared
+    memory) or by the integer rows of ``tables["cdf_rows"]``.  A group of
     threads per lane searches the CDF T-ways (``decode_group``), and an
     image's lanes span a cluster of ``decode_blocks_per_image(n_lanes)``
     blocks; returns new carry tensors (the inputs are not modified).
@@ -600,8 +741,7 @@ def rans_decode_phase(words, x, img_ptr, n_lanes: int, n_steps: int,
     decode_blocks_per_image(n_lanes)          # raises for what K4 refuses
     if words.device.type == "cpu":
         return rans_decode_phase_plain(words, x, img_ptr, n_lanes, n_steps,
-                                       cols, rows, cdf_rows, max_value,
-                                       offsets)
+                                       rows, tables, parametric)
     dev = words.device
     if dev.type != "cuda":
         raise ValueError("rans_decode_phase: inputs must be on a CUDA device")
@@ -611,20 +751,25 @@ def rans_decode_phase(words, x, img_ptr, n_lanes: int, n_steps: int,
             or img_ptr.dtype != torch.int32 or words.dtype != torch.int16:
         raise TypeError("rans_decode_phase: carry must be x int64 [B*n_lanes]"
                         ", img_ptr int32 [B]; words int16")
-    if cols is not None:
-        if cols.dtype != torch.float32 or cols.dim() != 3 \
-                or cols.shape[0] != 6 or cols.shape[2] != BL:
-            raise ValueError("rans_decode_phase: cols must be f32 [6, S, BL]")
-        S = cols.shape[1]
-        tabs = (cols,)
+    if rows.dtype != torch.int32 or rows.dim() != 2 or rows.shape[1] != BL:
+        raise ValueError("rans_decode_phase: rows must be int32 [S, BL]")
+    S = rows.shape[0]
+    if parametric:
+        rp = tables["row_params"]
+        if rp.dtype != torch.float32 or rp.dim() != 2 or rp.shape[1] != 6 \
+                or not 1 <= rp.shape[0] <= MAX_ROWS:
+            raise ValueError(f"rans_decode_phase: row_params must be f32 "
+                             f"[<= {MAX_ROWS}, 6]")
+        tabs = (rows, rp)
+        tab_args = (rp.data_ptr(), rp.shape[0], None, 0, None, None)
     else:
-        if rows.dtype != torch.int32 or rows.dim() != 2 \
-                or rows.shape[1] != BL:
-            raise ValueError("rans_decode_phase: rows must be int32 [S, BL]")
-        S = rows.shape[0]
+        cdf_rows, max_value, offsets = (tables[k] for k in (
+            "cdf_rows", "max_value", "offsets"))
         tabs = (rows, cdf_rows, max_value, offsets)
         if any(t.dtype != torch.int32 for t in tabs):
             raise TypeError("rans_decode_phase: row tables must be int32")
+        tab_args = (None, 0, cdf_rows.data_ptr(), cdf_rows.shape[1],
+                    max_value.data_ptr(), offsets.data_ptr())
     for t in (words, x, img_ptr) + tabs:
         if t.device != dev or not t.is_contiguous():
             raise ValueError("rans_decode_phase: inputs must be contiguous "
@@ -633,16 +778,11 @@ def rans_decode_phase(words, x, img_ptr, n_lanes: int, n_steps: int,
     ptr_out = torch.empty_like(img_ptr)
     sym = torch.empty((S, BL), dtype=torch.int32, device=dev)
     esc = torch.empty((S, BL), dtype=torch.bool, device=dev)
-    if cols is not None:
-        tab_args = (cols.data_ptr(), n_steps, None, None, 0, None, None)
-    else:
-        tab_args = (None, n_steps, rows.data_ptr(), cdf_rows.data_ptr(),
-                    cdf_rows.shape[1], max_value.data_ptr(),
-                    offsets.data_ptr())
     DECODE_KERNEL.launch(words.data_ptr(), words.numel(), x.data_ptr(),
                          img_ptr.data_ptr(), x_out.data_ptr(),
                          ptr_out.data_ptr(), sym.data_ptr(), esc.data_ptr(),
-                         S, B, n_lanes, *tab_args, stream_handle(words))
+                         S, B, n_lanes, int(not parametric), rows.data_ptr(),
+                         n_steps, *tab_args, stream_handle(words))
     return sym, esc, x_out, ptr_out
 
 
@@ -654,10 +794,10 @@ def make_decoder(words: torch.Tensor, n_steps: int, esc_values: torch.Tensor,
     ``esc_values`` int32 (all images' escape values), ``esc_begin`` int32
     [B] per-image offsets into it.  Returns (init, decode):
     ``init(img_begin) -> carry``; ``decode(carry, rows, tables,
-    n_steps_row=None, pre_cols=None) -> (carry, symbols [S*B*n_lanes])``
-    in position order, escapes patched in from the side channel.  With
-    ``pre_cols`` the phase decodes parametrically, else by bisection over
-    ``tables["cdf_rows"][rows]``."""
+    n_steps_row=None) -> (carry, symbols [S*B*n_lanes])`` in position
+    order, escapes patched in from the side channel.  Without
+    ``n_steps_row`` the phase decodes parametrically (``n_steps`` levels),
+    with it by bisection over ``tables["cdf_rows"][rows]``."""
     if esc_values.numel() == 0:
         esc_values = torch.zeros(1, dtype=torch.int32, device=words.device)
 
@@ -665,16 +805,12 @@ def make_decoder(words: torch.Tensor, n_steps: int, esc_values: torch.Tensor,
         x, ptr = rans_init_global(words, img_begin, n_lanes)
         return x, ptr, torch.zeros_like(esc_begin)
 
-    def decode(carry, rows, tables, n_steps_row=None, pre_cols=None):
+    def decode(carry, rows, tables, n_steps_row=None):
         x, ptr, esc_count = carry
-        if pre_cols is not None:
-            sym, esc, x, ptr = rans_decode_phase(words, x, ptr, n_lanes,
-                                                 n_steps, cols=pre_cols)
-        else:
-            sym, esc, x, ptr = rans_decode_phase(
-                words, x, ptr, n_lanes, n_steps_row or n_steps, rows=rows,
-                cdf_rows=tables["cdf_rows"], max_value=tables["max_value"],
-                offsets=tables["offsets"])
+        parametric = n_steps_row is None
+        sym, esc, x, ptr = rans_decode_phase(
+            words, x, ptr, n_lanes, n_steps if parametric else n_steps_row,
+            rows, tables, parametric)
         out, esc_count = patch_escapes(sym, esc, esc_count, esc_values,
                                        esc_begin, n_lanes)
         return (x, ptr, esc_count), out

@@ -13,8 +13,9 @@ and the escape is row-independent: slot L <=> cf == 2^16 - 1.
 The port's integer tables are its own: ``torch.erfc``/CUDA ``erfcf`` and
 XLA's erfc differ in the last ulp on some inputs, so a few table entries
 differ by +-1 from the JAX package's.  What binds encoder and decoder is
-that both evaluate ONE function -- ``eval_cdf`` (kernel K2 on the card,
-sharing ``csrc/cdf.cuh`` with the decode kernel) -- and that ``update``
+that both evaluate ONE function -- ``cdf_eval`` of ``csrc/cdf.cuh`` on the
+card, shared by K2 (``eval_cdf``), the encoder's prep K7 and the decoder
+K4; ``eval_cdf_plain`` on the CPU -- and that ``update``
 checks the table for rANS validity and re-evaluates every entry in decode
 and encode shape (``self_check``, ``self_check_encode``).  Each check
 returns the number of entries that differ; 0 passes.
@@ -132,10 +133,9 @@ def validate_tables(table: np.ndarray, cdf_lengths: np.ndarray) -> int:
 def self_check(params: torch.Tensor, table: np.ndarray,
                cdf_lengths: np.ndarray, n_lanes: int = 512) -> int:
     """Decode-shaped re-evaluation of every valid (row, k) entry
-    (parametric.py:147): the row constants come through ``select_rows`` in
-    [steps, n_lanes] layout, as the decoder's pre-columns do, then
-    ``eval_cdf``.  Returns the number of entries that differ from
-    ``table``."""
+    (parametric.py:147): the row constants come through ``select_rows``
+    (K1) in [steps, n_lanes] layout, then ``eval_cdf``.  Returns the number
+    of entries that differ from ``table``."""
     from mlic_tpu_torch.ops.select_rows import select_rows
 
     n, max_len = table.shape
@@ -158,10 +158,11 @@ def self_check(params: torch.Tensor, table: np.ndarray,
 def self_check_encode(params: torch.Tensor, table: np.ndarray,
                       cdf_lengths: np.ndarray) -> int:
     """Encode-shaped re-evaluation (parametric.py:190): the production
-    prep ``device_rans.analytic_start_freq`` over every (row, slot) the
-    encoder can see, against the table's start, frequency and escape slot.
-    Returns the number of (row, slot) entries that differ."""
-    from mlic_tpu_torch.entropy.device_rans import analytic_start_freq
+    prep ``device_rans.rans_encode_prep`` (K7 on the card) over every
+    (row, slot) the encoder can see, against the table's start, frequency
+    and escape slot.  Returns the number of (row, slot) entries that
+    differ."""
+    from mlic_tpu_torch.entropy.device_rans import rans_encode_prep
 
     n, max_len = table.shape
     lengths = np.asarray(cdf_lengths, np.int64)
@@ -170,10 +171,11 @@ def self_check_encode(params: torch.Tensor, table: np.ndarray,
     rows = np.broadcast_to(np.arange(n)[:, None], (n, max_len - 1))
     sym = -centers[:, None] + k[None, :]
     dev = params.device
-    st, fm, esc = (a.cpu().numpy() for a in analytic_start_freq(
-        torch.from_numpy(sym.astype(np.int32)).to(dev),
-        torch.from_numpy(np.ascontiguousarray(rows, np.int32)).to(dev),
-        params))
+    sym_t = torch.from_numpy(sym.astype(np.int32)).to(dev)
+    _, y = rans_encode_prep(
+        sym_t, torch.from_numpy(np.ascontiguousarray(rows, np.int32)).to(dev),
+        sym_t.new_zeros((n, 0)), {"row_params": params})
+    st, fm, esc = (a.cpu().numpy() for a in y)
     bad = 0
     for i in range(n):
         mv = int(lengths[i]) - 2

@@ -49,7 +49,6 @@ from mlic_tpu_torch.ops.math import (
     ckbd_nonanchor_squeeze,
     ckbd_nonanchor_unsqueeze,
 )
-from mlic_tpu_torch.ops.select_rows import select_rows
 
 # transform_dtype -> (compute dtype of g_a/h_a/g_s, GDN dtype), as
 # mlicpp.py:81-94: plain "bfloat16" keeps GDN's norm in f32 with casts
@@ -257,9 +256,7 @@ class MLICPlusPlus(nn.Module):
             n_img = c * h * w2
             ordered = phase_order(nhwc_flat(build_indexes(
                 sc_sq, self.scale_table)), n_lanes, pad_row).contiguous()
-            pre_cols = select_rows(ordered, tables["row_params"])
-            state["carry"], sym = decode(state["carry"], ordered, tables,
-                                         pre_cols=pre_cols)
+            state["carry"], sym = decode(state["carry"], ordered, tables)
             sym = (sym.reshape(-1, b, n_lanes).permute(1, 0, 2)
                    .reshape(b, -1)[:, :n_img].reshape(b, h, w2, c))
             return unsqueeze(self._phase_recon(to_nchw(sym), mu_sq))

@@ -87,20 +87,27 @@ KERNELS = {k.name: k for k in (
     # k, m, b, A, C, B, out, n_total, n_cols, stream
     Kernel("eval_cdf", "eval_cdf.cu", "eval_cdf_launch",
            [_P] * 7 + [_LL, _LL, _P]),
+    # y_sym, y_idx, z_sym, row_params, n_rows, cdf_rows, width, max_value,
+    # offsets, z_rows_base, n_z_rows, n_images, n_y, n_z, z_start,
+    # z_freqm1, z_esc, y_start, y_freqm1, y_esc, stream
+    Kernel("rans_encode_prep", "rans_encode_prep.cu",
+           "rans_encode_prep_launch",
+           [_P] * 4 + [_I, _P, _I, _P, _P] + [_I] * 5 + [_P] * 7),
     # z_start, z_freqm1, y_start, y_freqm1, x_out, words, masks, n_images,
     # n_lanes, n_z, n_per, n_phases, stream
     Kernel("rans_encode_scan", "rans_encode.cu", "rans_encode_launch",
            [_P] * 7 + [_I] * 5 + [_P]),
-    # masks, words, x, z_esc, z_sym, y_esc, y_sym, emasks, agg, buf, img_n,
-    # ebuf, ecount, n_images, n_lanes, n_z, n_per, n_phases, stream
+    # masks, words, x, z_esc, z_sym, y_esc, y_sym, control, status, buf,
+    # img_n, ebuf, ecount, n_images, n_lanes, n_z, n_per, n_phases,
+    # steps_per_item, items_per_image, stream
     Kernel("rans_encode_compact", "rans_compact.cu", "rans_compact_launch",
-           [_P] * 13 + [_I] * 5 + [_P]),
+           [_P] * 13 + [_I] * 7 + [_P]),
     # words, n_words, x_in, ptr_in, x_out, ptr_out, sym, esc, S, n_images,
-    # n_lanes, cols, n_steps, rows, cdf_rows, width, max_value, offsets,
-    # stream
+    # n_lanes, mode (0 parametric, 1 integer rows), rows, n_steps,
+    # row_params, n_param_rows, cdf_rows, width, max_value, offsets, stream
     Kernel("rans_decode_phase", "rans_decode.cu", "rans_decode_launch",
-           [_P, _LL] + [_P] * 6 + [_I, _I, _I, _P, _I, _P, _P, _I, _P, _P,
-                                   _P]),
+           [_P, _LL] + [_P] * 6 + [_I] * 4 + [_P, _I, _P, _I, _P, _I, _P,
+                                              _P, _P]),
     # mid, skip, out, dw, bdw, pw, bpw, gamma, beta, B, C, N, H, W, act,
     # is_bf16, stream
     Kernel("fused_block_tail", "fused_block_tail.cu",

@@ -1,10 +1,12 @@
 """Row select ``table[row]`` per column: kernel K1 and its plain version.
 
 Port of ``mlic_tpu/ops/pallas_select.py`` (``select_rows_pallas``) and of
-``device_rans.select_rows`` (:387).  The codec uses it for the Gaussian
-row-parameter table (65 rows x 6 columns m, b, A, C, B, L): once per batch
-in the encoder's start/frequency prep, once per y phase for the decoder's
-pre-columns, and in ``parametric.self_check``.  Rows outside
+``device_rans.select_rows`` (:387), for the Gaussian row-parameter table
+(65 rows x 6 columns m, b, A, C, B, L).  The codec launches it once per
+``Codec.update``, in ``parametric.self_check``; the kernels that code a
+batch (K4, K7) select their rows in their own shared memory with the
+same rule, and the plain versions of both call ``select_rows_plain``.
+Rows outside
 ``[0, n_rows)`` select row 0, as the TPU kernel's compare+select chain does.
 Exact by construction: the kernel copies the table's own f32 values.
 """

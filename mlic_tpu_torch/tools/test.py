@@ -9,7 +9,8 @@ on the CUDA card unless ``--cpu`` is given.  ``--checkpoint`` is a file
 that ``torch.load`` reads as a state_dict; without it the weights are
 seeded random ones, which exercise the codec but compress nothing.
 ``MLIC_FUSED_BLOCKS=1`` in the environment selects the fused block-tail
-kernel in g_a and g_s.
+kernel in g_a and g_s.  The codec picks its rANS lane count from the first
+image's size (``Codec(n_lanes="auto")``), as the reference CLI does.
 """
 
 from __future__ import annotations

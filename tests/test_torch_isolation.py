@@ -70,6 +70,7 @@ def test_wrappers_take_plain_version_only_on_cpu():
     cols = select_rows(row, table)
     eval_cdf(torch.zeros(3, 8, dtype=torch.int32), *cols[:5, 0])
     sec = torch.zeros(2, 12, dtype=torch.int32)
+    dr.rans_encode_prep(sec, sec, sec[:, :0], {"row_params": table})
     x, words, masks = dr.rans_encode_scan(sec, sec + 100, sec, sec + 100, 4,
                                           3)
     dr.rans_encode_compact(x, words, masks, sec.bool(), sec, sec.bool(), sec,
@@ -81,9 +82,9 @@ def test_wrappers_take_plain_version_only_on_cpu():
             torch.randn(6), torch.rand(6, 6), 1 + torch.rand(6), act="igdn")
         assert out.shape == (1, 6, 5, 7) and out.dtype == dt
     assert _build.launch_counts() == before       # no kernel launched
-    assert set(before) == {"select_rows", "eval_cdf", "rans_encode_scan",
-                           "rans_encode_compact", "rans_decode_phase",
-                           "fused_block_tail"}
+    assert set(before) == {"select_rows", "eval_cdf", "rans_encode_prep",
+                           "rans_encode_scan", "rans_encode_compact",
+                           "rans_decode_phase", "fused_block_tail"}
     with pytest.raises(ValueError, match="CUDA device"):
         fused_block_tail(*(t.to("meta") for t in (
             torch.randn(1, 4, 5, 7), torch.randn(1, 6, 5, 7),

@@ -1,5 +1,5 @@
-"""The port's format-v4 rANS (plain versions of kernels K1-K4) against the
-JAX package's host coder (``mlic_tpu/entropy/rans/coder.py``).
+"""The port's format-v4 rANS (plain versions of kernels K3, K4, K6 and K7)
+against the JAX package's host coder (``mlic_tpu/entropy/rans/coder.py``).
 
 Payloads mix a z section (factorized-prior rows, decoded by integer-row
 bisection) with Gaussian y phases (analytic CDF), each padded to a lane
@@ -134,10 +134,8 @@ def test_host_coder_reads_port_streams(tables, coded):
 
 def test_plain_decoder_recovers_symbols(tables, coded):
     """The decode path the model runs: rans_init_global, the z section by
-    row bisection, then each y phase parametrically from select_rows
-    pre-columns, escapes patched from the side channel."""
-    from mlic_tpu_torch.ops.select_rows import select_rows
-
+    row bisection, then each y phase parametrically from its rows of the
+    Gaussian row-parameter table, escapes patched from the side channel."""
     sym, idx, z, streams, _ = coded
     parsed = [parse_global(s) for s in streams]
     words = torch.from_numpy(np.concatenate([p[1] for p in parsed])
@@ -160,8 +158,7 @@ def test_plain_decoder_recovers_symbols(tables, coded):
         rows = dr.phase_order(torch.from_numpy(
             idx[:, k * N_PER:(k + 1) * N_PER]), N_LANES,
             tables["n_g"] - 1).contiguous()
-        carry, got = decode(carry, rows, dev,
-                            pre_cols=select_rows(rows, dev["row_params"]))
+        carry, got = decode(carry, rows, dev)
         out.append(got)
     want = torch.cat([dr.phase_order(torch.from_numpy(z), N_LANES, 0)] + [
         dr.phase_order(torch.from_numpy(sym[:, k * N_PER:(k + 1) * N_PER]),
@@ -181,9 +178,10 @@ def test_decode_phase_rejects_partial_warp_lane_counts(n_lanes):
     words = torch.zeros(4 * max(n_lanes, 1), dtype=torch.int16)
     x = torch.full((max(n_lanes, 1),), 1 << 16, dtype=torch.int64)
     ptr = torch.zeros(1, dtype=torch.int32)
-    cols = torch.zeros((6, 1, max(n_lanes, 1)), dtype=torch.float32)
+    rows = torch.zeros((1, max(n_lanes, 1)), dtype=torch.int32)
     with pytest.raises(ValueError, match="n_lanes"):
-        dr.rans_decode_phase(words, x, ptr, n_lanes, 1, cols=cols)
+        dr.rans_decode_phase(words, x, ptr, n_lanes, 1, rows,
+                             {"row_params": torch.zeros((2, 6))}, True)
 
 
 def test_encode_scan_matches_host_loop():
@@ -220,7 +218,7 @@ def test_encode_scan_matches_host_loop():
 _MASK16_T = (1 << 16) - 1
 
 
-def _bisect_slots(cf, n_steps, **tabs):
+def _bisect_slots(cf, n_steps, rows, tables, parametric):
     """(sym, start, freq, esc) of one step of ``rans_decode_phase_plain``
     per cf: one lane per image, so each lane's word pointer says whether it
     renormalized; two states with the same cf (x >> 16 = 1 and 2) give
@@ -231,7 +229,8 @@ def _bisect_slots(cf, n_steps, **tabs):
         x = (torch.full((n,), hi16, dtype=torch.int64) << 16) | cf.long()
         sym, esc, xo, ptr = dr.rans_decode_phase_plain(
             torch.zeros(4, dtype=torch.int16), x,
-            torch.zeros(n, dtype=torch.int32), 1, n_steps, **tabs)
+            torch.zeros(n, dtype=torch.int32), 1, n_steps, rows, tables,
+            parametric)
         outs.append((sym[0], esc[0], torch.where(ptr > 0, xo >> 16, xo)))
     freq = outs[1][2] - outs[0][2]
     return outs[0][0], cf.long() + freq - outs[0][2], freq, outs[0][1]
@@ -265,7 +264,8 @@ def test_kary_search_matches_bisection_parametric(tables, group):
     cf = torch.from_numpy(np.concatenate(cf).astype(np.int32))
     cols = rp[idx].t().contiguous()
     got = dr.decode_slot_plain(cf, group, tables["n_steps"], cols_s=cols)
-    want = _bisect_slots(cf, tables["n_steps"], cols=cols[:, None, :])
+    want = _bisect_slots(cf, tables["n_steps"], idx.to(torch.int32)[None],
+                         {"row_params": rp}, True)
     _assert_same_slots(got, want)
     assert bool(got[3].any()) and bool((cf == 0).any())
 
@@ -291,7 +291,7 @@ def test_kary_search_matches_bisection_rows(tables, group):
     tabs = dict(cdf_rows=dev["cdf_rows"], max_value=dev["max_value"],
                 offsets=dev["offsets"])
     got = dr.decode_slot_plain(cf, group, tables["z_steps"], row=rows, **tabs)
-    want = _bisect_slots(cf, tables["z_steps"], rows=rows[None], **tabs)
+    want = _bisect_slots(cf, tables["z_steps"], rows[None], tabs, False)
     _assert_same_slots(got, want)
     assert bool(got[3].any())
 
@@ -302,6 +302,7 @@ def test_kary_search_on_tiny_codec_payload(monkeypatch):
     {2, 4, 8}; symbols, escape flags and the carry equal the bisection's."""
     from mlic_tpu_torch.codec import Codec
     from mlic_tpu_torch.models.registry import get_model
+    from mlic_tpu_torch.ops.select_rows import select_rows_plain
     from mlic_tpu_torch.weights import init_params
 
     model = get_model("MLICPP_TINY")
@@ -313,31 +314,33 @@ def test_kary_search_on_tiny_codec_payload(monkeypatch):
     bisect = dr.rans_decode_phase
     phases = []
 
-    def both(words, x, img_ptr, n_lanes, n_steps, cols=None, rows=None,
-             cdf_rows=None, max_value=None, offsets=None):
-        ref = bisect(words, x, img_ptr, n_lanes, n_steps, cols, rows,
-                     cdf_rows, max_value, offsets)
-        S = cols.shape[1] if cols is not None else rows.shape[0]
+    def both(words, x, img_ptr, n_lanes, n_steps, rows, tables, parametric):
+        ref = bisect(words, x, img_ptr, n_lanes, n_steps, rows, tables,
+                     parametric)
+        cols = select_rows_plain(rows, tables["row_params"]) if parametric \
+            else None
         for group in (2, 4, 8):
             xs, ptr = x, img_ptr
-            for s in range(S):
+            for s in range(rows.shape[0]):
                 cf = (xs & 0xFFFF).to(torch.int32)
                 sym, start, freq, esc = dr.decode_slot_plain(
                     cf, group, n_steps,
-                    cols_s=None if cols is None else cols[:, s],
-                    row=None if rows is None else rows[s],
-                    cdf_rows=cdf_rows, max_value=max_value, offsets=offsets)
+                    cols_s=cols[:, s] if parametric else None,
+                    row=None if parametric else rows[s],
+                    cdf_rows=tables["cdf_rows"],
+                    max_value=tables["max_value"], offsets=tables["offsets"])
                 assert torch.equal(sym, ref[0][s]) and torch.equal(esc, ref[1][s])
                 xs = (freq.long() * (xs >> 16) + cf - start) & 0xFFFFFFFF
                 xs, ptr = dr._renorm_global_plain(xs, ptr, words)
             assert torch.equal(xs, ref[2]) and torch.equal(ptr, ref[3])
-        phases.append("cols" if cols is not None else "rows")
+        phases.append("parametric" if parametric else "rows")
         return ref
 
     monkeypatch.setattr(dr, "rans_decode_phase", both)
     dec = codec.decompress(enc["strings"], enc["shape"])
     assert torch.equal(dec["y_hat"], enc["y_hat"])
-    assert phases[0] == "rows" and phases.count("cols") == len(phases) - 1 > 0
+    assert phases[0] == "rows" and \
+        phases.count("parametric") == len(phases) - 1 > 0
 
 
 @pytest.mark.parametrize("lanes", [list(range(1, 32)),
@@ -372,10 +375,9 @@ def test_decode_cluster_sizing(lanes):
 # --------------------------------------------------------------------------
 def _sections(tables, sym, idx, z):
     """The prep's z and y sections, as ``encode_rans_v4`` computes them."""
-    from mlic_tpu_torch.codec import encode_inputs_v4
     sym_t, idx_t, z_t = (torch.from_numpy(a) for a in (sym, idx, z))
-    return encode_inputs_v4(sym_t, idx_t, z_t, tables["dev"], N_CH,
-                            tables["n_g"]), sym_t, z_t
+    return dr.rans_encode_prep(sym_t, idx_t, z_t, tables["dev"],
+                               tables["n_g"], N_CH), sym_t, z_t
 
 
 def _old_layout(az, ay, n_lanes, pad_value):
@@ -518,3 +520,248 @@ def test_encode_wrappers_refuse(case):
         dr.rans_encode_compact(x, words, masks[:-1], esc_z,
                                *_good_sections()[:1], esc_y,
                                _good_sections()[2], 4, 3)
+
+
+# --------------------------------------------------------------------------
+# K7 (the prep), K4's rows, K6's items (the plain versions)
+# --------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def tiny_payload():
+    """A seeded MLICPP_TINY batch (2 x 64x128, random weights) through
+    ``analyze`` and the encode pass, 3% of y and z symbols pushed out of
+    their rows' support (escapes), and the codec's tables."""
+    from mlic_tpu_torch.codec import Codec
+    from mlic_tpu_torch.models.registry import get_model
+    from mlic_tpu_torch.weights import init_params
+
+    model = get_model("MLICPP_TINY")
+    model.load_state_dict(init_params(model, torch.Generator().manual_seed(0)))
+    codec = Codec(model, n_lanes=16, device="cpu")
+    codec.update()
+    rng = np.random.default_rng(60)
+    x = rng.integers(0, 256, (2, 64, 128, 3), dtype=np.uint8)
+    with torch.no_grad():
+        y, z = model.analyze(torch.from_numpy(x))
+        _, sym, idx = model.codec_encode_pass(y, z)
+    sym, z = sym.numpy().copy(), z.reshape(2, -1).numpy().copy()
+    for a, hi in ((sym, 4000), (z, 400)):
+        m = rng.random(a.shape) < 0.03
+        a[m] = rng.choice([-1, 1], int(m.sum())) * rng.integers(
+            hi // 2, hi, int(m.sum()))
+    return codec, torch.from_numpy(sym), idx, torch.from_numpy(z)
+
+
+def test_encode_prep_plain_matches_composition_and_jax(tiny_payload):
+    """K7's plain path (the wrapper on CPU tensors) equals the composition
+    it replaced on the card (K1 and K2 through their wrappers) and the JAX
+    package's ``analytic_start_freq`` / ``_gather_start_freq`` bit for
+    bit: everywhere in z (integer tables), and in y wherever the port's
+    parametric table agrees with XLA's at the slot and the next (the
+    tables differ in a few entries by design; test_torch_parametric.py)."""
+    import jax.numpy as jnp
+
+    from mlic_tpu.entropy import device_rans as jdr
+    from mlic_tpu.entropy import parametric as jp
+    from mlic_tpu_torch.ops.select_rows import select_rows
+
+    codec, sym, idx, z = tiny_payload
+    t = codec.tables
+    n_ch = codec.model.cfg.N
+    args = (sym, idx, z, t, codec.z_rows_base, n_ch)
+    got = dr.rans_encode_prep(*args)
+    old = dr.encode_prep_plain(*args, select=select_rows, cdf=tp.eval_cdf)
+    for g, o in zip(got, old):
+        for a, b in zip(g, o):
+            assert torch.equal(a, b)
+    (zs, zf, ze), (ys, yf, ye) = got
+    assert int(ze.sum()) > 0 and int(ye.sum()) > 0
+
+    jt = {k: jnp.asarray(v.numpy()) for k, v in t.items()}
+    z_rows = codec.z_rows_base + np.arange(z.shape[1]) % n_ch
+    js, jf, je = jdr._gather_start_freq(
+        jnp.asarray(z.numpy()), jnp.asarray(np.broadcast_to(z_rows, z.shape)),
+        jt)
+    np.testing.assert_array_equal(zs.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(zf.numpy(), np.asarray(jf))
+    np.testing.assert_array_equal(ze.numpy(), np.asarray(je))
+
+    js, jf, je = jdr.analytic_start_freq(jnp.asarray(sym.numpy()),
+                                         jnp.asarray(idx.numpy()),
+                                         jt["row_params"])
+    np.testing.assert_array_equal(ye.numpy(), np.asarray(je))
+    n_g = codec.z_rows_base
+    lengths = t["max_value"].numpy()[:n_g] + 2
+    port_tab = t["cdf_rows"].numpy()[:n_g, :lengths.max()]
+    differs = port_tab != jp.generate_tables(t["row_params"].numpy(), lengths)
+    r = idx.numpy()
+    L = t["row_params"].numpy()[r, 5].astype(np.int64)
+    v = sym.numpy() - (-((L - 1) >> 1))
+    slot = np.where(ye.numpy(), L, v)
+    expect = differs[r, slot] | differs[r, slot + 1]
+    seen = (ys.numpy() != np.asarray(js)) | (yf.numpy() != np.asarray(jf))
+    np.testing.assert_array_equal(seen, expect)
+
+
+def _old_decode_phase_cols(words, x, img_ptr, n_steps, cols):
+    """The parametric plain decode as it read K1's six column planes
+    [6, S, B*n_lanes] before K4 took row indexes (kept as the reference)."""
+    S = cols.shape[1]
+    sym = torch.empty((S, x.shape[0]), dtype=torch.int32)
+    esc_out = torch.empty((S, x.shape[0]), dtype=torch.bool)
+    for s in range(S):
+        cf = (x & 0xFFFF).to(torch.int32)
+        lo, v_lo = torch.zeros_like(cf), torch.zeros_like(cf)
+        pm, pb, pA, pC, pB, pL = cols[:, s]
+        mv = pL.to(torch.int32)
+        esc = cf == 0xFFFF
+        hi, v_hi = mv, torch.full_like(cf, 0xFFFF)
+        for _ in range(n_steps):
+            guard = (hi - lo) > 1
+            mid = (lo + hi) >> 1
+            v_mid = tp.eval_cdf_plain(mid, pm, pb, pA, pC, pB)
+            take = (v_mid <= cf) & guard
+            keep = guard & ~take
+            lo, v_lo = torch.where(take, mid, lo), torch.where(take, v_mid, v_lo)
+            hi, v_hi = torch.where(keep, mid, hi), torch.where(keep, v_mid, v_hi)
+        start = torch.where(esc, 0xFFFF, v_lo).long()
+        freq = torch.where(esc, 1, v_hi - v_lo).long()
+        sym[s] = lo - ((mv - 1) >> 1)
+        esc_out[s] = esc
+        x = (freq * (x >> 16) + (x & 0xFFFF) - start) & 0xFFFFFFFF
+        x, img_ptr = dr._renorm_global_plain(x, img_ptr, words)
+    return sym, esc_out, x, img_ptr
+
+
+@pytest.mark.parametrize("n_lanes,n_img", [(16, 3), (64, 2)])
+def test_decode_phase_plain_rows_equals_cols_form(tables, n_lanes, n_img):
+    """``rans_decode_phase_plain`` with row indexes and the row-parameter
+    table equals the parametric decode on K1's column planes, on seeded
+    states (some at the escape slot), words and rows (out-of-table rows
+    select row 0, as K1 does)."""
+    from mlic_tpu_torch.ops.select_rows import select_rows_plain
+
+    rp = tables["dev"]["row_params"]
+    rng = np.random.default_rng(70 + n_lanes)
+    S, BL = 6, n_img * n_lanes
+    words = torch.from_numpy(rng.integers(0, 1 << 16, 8 * S * BL)
+                             .astype(np.uint16).view(np.int16))
+    x = torch.from_numpy(rng.integers(1 << 16, 1 << 32, BL))
+    x[::5] |= 0xFFFF                     # cf = 2^16 - 1: the escape slot
+    ptr = torch.from_numpy((np.arange(n_img) * 4 * S * n_lanes)
+                           .astype(np.int32))
+    rows = torch.from_numpy(rng.integers(-2, rp.shape[0] + 2, (S, BL))
+                            .astype(np.int32))
+    got = dr.rans_decode_phase_plain(words, x, ptr, n_lanes,
+                                     tables["n_steps"], rows,
+                                     {"row_params": rp}, True)
+    want = _old_decode_phase_cols(words, x, ptr, tables["n_steps"],
+                                  select_rows_plain(rows, rp))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool(got[1].any())
+
+
+@pytest.mark.parametrize("n_lanes", [1, 16, 32, 512, 1024])
+def test_compact_plan_tiles_every_step(n_lanes):
+    """K6's items: one mask word a thread (256 a block), runs of steps that
+    tile each image's steps in order, and one empty item for an image of
+    no steps."""
+    W = -(-n_lanes // 32)
+    for S in (0, 1, 7, 255, 256, 257, 498, 3100):
+        per, ipi = dr.compact_plan(n_lanes, S)
+        assert per * W == dr.COMPACT_THREADS
+        runs = [(i * per, min((i + 1) * per, S)) for i in range(ipi)]
+        assert ipi == max(-(-S // per), 1)
+        assert all(lo < hi for lo, hi in runs) or S == 0
+        assert sum(hi - lo for lo, hi in runs) == S
+        assert all(runs[i][1] == runs[i + 1][0] for i in range(ipi - 1))
+
+
+@pytest.mark.parametrize("n_lanes", [1, 16, 64])
+def test_compact_items_match_compact_streams_global(n_lanes):
+    """K6's item arithmetic (``compact_items_plain``): every item's
+    exclusive prefix is the number of words and escapes of all images
+    before its first position, and the image totals are
+    ``compact_streams_global``'s img_n and ecount."""
+    rng = np.random.default_rng(80 + n_lanes)
+    S, B = 600 if n_lanes == 1 else 40, 3
+    emits = torch.from_numpy(rng.random((S, B * n_lanes)) < 0.4)
+    esc = torch.from_numpy(rng.random((S, B * n_lanes)) < 0.05)
+    masks = dr.emits_to_masks(emits, n_lanes)
+    got = dr.compact_items_plain(masks, esc, n_lanes)
+    words = torch.zeros((S, B * n_lanes), dtype=torch.int16)
+    sym = torch.zeros((S, B * n_lanes), dtype=torch.int32)
+    x = torch.zeros(B * n_lanes, dtype=torch.int64)
+    ref = dr.compact_streams_global(x, words, masks, esc, sym, B)
+    assert torch.equal(got["img_n"].int(), ref["img_n"])
+    assert torch.equal(got["ecount"].int(), ref["ecount"])
+    per, ipi = dr.compact_plan(n_lanes, S)
+
+    def per_image(a):
+        return a.reshape(S, B, n_lanes).permute(1, 0, 2).reshape(B, -1).long()
+    flat = torch.stack([per_image(emits).reshape(-1),
+                        per_image(esc).reshape(-1)], 1)
+    starts = torch.cat([torch.zeros((1, 2), dtype=torch.int64),
+                        torch.cumsum(flat, 0)])
+    first = [b * S * n_lanes + min(j * per, S) * n_lanes
+             for b in range(B) for j in range(ipi)]
+    assert torch.equal(got["exclusive"], starts[first])
+    assert torch.equal(got["aggregate"].sum(0), flat.sum(0))
+
+
+def test_compact_status_tags():
+    """K6's status tags: epoch << 2 | flag, 62 bits of epoch; a tag of
+    another epoch, or zeroed memory (flag 0), never reads as ready."""
+    epochs = [0, 1, 2, 3, 4, (1 << 40) + 7, (1 << 62) - 1]
+    tags = {(e, f): dr.compact_status_tag(e, f) for e in epochs
+            for f in (dr.STATUS_AGGREGATE, dr.STATUS_PREFIX)}
+    assert len(set(tags.values())) == len(tags)
+    for (e, f), t in tags.items():
+        assert 0 < t < 1 << 64 and t >> 2 == e and t & 3 == f
+    assert all(t & 3 for t in tags.values())
+
+
+@pytest.mark.parametrize("n_lanes,n_z,n_per,n_phases",
+                         [(1, 7, 5, 3), (16, 48, 100, 4), (64, 65, 33, 2)])
+def test_compact_plain_matches_jax_on_ragged_geometries(n_lanes, n_z, n_per,
+                                                        n_phases):
+    """The plain back end through K3's and K6's wrappers (CPU tensors) on
+    seeded sections with pads in both (one lane, 16 and 64 lanes) is
+    byte-identical to the JAX package's ``compact_streams_global`` on the
+    same scan outputs in position order."""
+    import jax.numpy as jnp
+
+    from mlic_tpu.entropy import device_rans as jdr
+
+    rng = np.random.default_rng(90 + n_lanes)
+    B = 3
+    i32 = torch.int32
+
+    def sections(n):
+        freq = rng.integers(1, 1 << 12, (B, n))
+        start = rng.integers(0, (1 << 16) - freq)
+        return (torch.from_numpy(start).to(i32),
+                torch.from_numpy(freq - 1).to(i32),
+                torch.from_numpy(rng.random((B, n)) < 0.05),
+                torch.from_numpy(rng.integers(-5000, 5000, (B, n))).to(i32))
+    zs, zf, ze, zsym = sections(n_z)
+    ys, yf, ye, ysym = sections(n_phases * n_per)
+    scan = dr.rans_encode_scan(zs, zf, ys, yf, n_lanes, n_phases)
+    got = dr.rans_encode_compact(*scan, ze, zsym, ye, ysym, n_lanes, n_phases)
+    x, words, masks = scan
+    emits = dr.masks_to_emits(masks, n_lanes)
+    esc = dr.encode_layout_plain(ze, ye, n_lanes, n_phases, False)
+    sym = dr.encode_layout_plain(zsym, ysym, n_lanes, n_phases, 0)
+    ref = jdr.compact_streams_global(
+        jnp.asarray(x.numpy().astype(np.uint32)),
+        jnp.asarray(words.numpy().view(np.uint16)), jnp.asarray(emits.numpy()),
+        jnp.asarray(esc.numpy()), jnp.asarray(sym.numpy()), B)
+    n, ne = int(np.sum(ref["img_n"])), int(np.sum(ref["ecount"]))
+    np.testing.assert_array_equal(got["buf"][:n].numpy().view(np.uint16),
+                                  np.asarray(ref["buf"])[:n])
+    np.testing.assert_array_equal(got["img_n"].numpy(), np.asarray(ref["img_n"]))
+    np.testing.assert_array_equal(got["ebuf"][:ne].numpy(),
+                                  np.asarray(ref["ebuf"])[:ne])
+    np.testing.assert_array_equal(got["ecount"].numpy(),
+                                  np.asarray(ref["ecount"]))
+    assert ne > 0 and bool(esc.sum() > 0)
