@@ -1,13 +1,19 @@
-"""Image input for evaluation: the port's own copy of what
-``mlic_tpu/data/folder.py`` offers for it (numpy and, inside ``load_image``,
-PIL): recursive image discovery, decoding to uint8, and the procedural
-dead-leaves pool used where no dataset is mounted.  The training pipeline
-(random crops, prefetching batches) is not ported yet.
+"""Image input for training and evaluation: the port's own copy of
+``mlic_tpu/data/folder.py`` (numpy, and PIL inside the functions that
+decode or resize): recursive image discovery, decoding to uint8, random
+resize and crop, a folder dataset with a threaded prefetch, the procedural
+dead-leaves pool used where no dataset is mounted, and the batch streams
+over a pool or of synthetic waves.  Every random draw is the JAX package's,
+from the same numpy streams, so the batches are byte-identical.  The
+``autoaugment`` option waits for the port of ``data/autoaugment.py``.
 """
 
 from __future__ import annotations
 
 import os
+import queue
+import threading
+from typing import Iterator
 
 import numpy as np
 
@@ -29,6 +35,88 @@ def load_image(path: str) -> np.ndarray:
     ImageFile.LOAD_TRUNCATED_IMAGES = True  # tolerate corrupt files (train.py:48)
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"))
+
+
+def random_resize_crop(img: np.ndarray, patch: int, rng: np.random.Generator,
+                       resize_logrange: float = 0.0) -> np.ndarray:
+    """Optional log-uniform area rescale (reference ``RandomResize``,
+    dataset.py:92-117 uses s in e^[-3.2, 3.2]), then a random crop to
+    ``patch`` and a random horizontal flip."""
+    h, w = img.shape[:2]
+    if resize_logrange > 0:
+        from PIL import Image
+        s = float(np.exp(rng.uniform(-resize_logrange, resize_logrange))) ** 0.5
+        # never shrink below the crop size
+        s = max(s, (patch + 1) / min(h, w))
+        nh, nw = max(int(h * s), patch), max(int(w * s), patch)
+        img = np.asarray(Image.fromarray(img).resize((nw, nh), Image.BILINEAR))
+        h, w = nh, nw
+    if h < patch or w < patch:
+        ph, pw = max(patch - h, 0), max(patch - w, 0)
+        img = np.pad(img, ((0, ph), (0, pw), (0, 0)), mode="reflect")
+        h, w = img.shape[:2]
+    top = int(rng.integers(0, h - patch + 1))
+    left = int(rng.integers(0, w - patch + 1))
+    out = img[top:top + patch, left:left + patch]
+    if rng.random() < 0.5:
+        out = out[:, ::-1]
+    return out
+
+
+class ImageFolderDataset:
+    """Random crops of the images under a folder (reference ``ImageFolder2``,
+    dataset.py:42-117); process ``process_index`` of ``process_count``
+    reads its own share of the file list."""
+
+    def __init__(self, root: str, patch_size: int = 256,
+                 resize_logrange: float = 0.0,
+                 process_index: int = 0, process_count: int = 1,
+                 seed: int = 0):
+        self.files = list_images(root)[process_index::process_count]
+        if not self.files:
+            raise FileNotFoundError(f"no images under {root}")
+        self.patch = patch_size
+        self.resize_logrange = resize_logrange
+        self.rng = np.random.default_rng(seed + process_index)
+
+    def __len__(self):
+        return len(self.files)
+
+    def sample_batch(self, batch_size: int) -> np.ndarray:
+        """[B, patch, patch, 3] float32 in [0,1]."""
+        idx = self.rng.integers(0, len(self.files), size=batch_size)
+        out = np.empty((batch_size, self.patch, self.patch, 3), np.float32)
+        for i, j in enumerate(idx):
+            img = load_image(self.files[int(j)])
+            out[i] = random_resize_crop(img, self.patch, self.rng,
+                                        self.resize_logrange
+                                        ).astype(np.float32) / 255.0
+        return out
+
+    def batches(self, batch_size: int, steps: int,
+                prefetch: int = 2) -> Iterator[np.ndarray]:
+        """``steps`` batches, decoded by a thread ``prefetch`` batches
+        ahead."""
+        q: queue.Queue = queue.Queue(maxsize=prefetch)
+        stop = threading.Event()
+
+        def worker():
+            for _ in range(steps):
+                if stop.is_set():
+                    return
+                q.put(self.sample_batch(batch_size))
+            q.put(None)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    return
+                yield item
+        finally:
+            stop.set()
 
 
 def dead_leaves_pool(n_images: int, size: int, seed: int = 0,
@@ -87,3 +175,41 @@ def dead_leaves_pool(n_images: int, size: int, seed: int = 0,
         np.savez_compressed(cache + ".tmp.npz", pool=pool)
         os.replace(cache + ".tmp.npz", cache)
     return pool
+
+
+def pool_batches(pool: np.ndarray, batch_size: int, patch: int, steps: int,
+                 seed: int = 0, as_float: bool = False) -> Iterator[np.ndarray]:
+    """Random-crop, random-hflip batches from an in-memory uint8 pool (the
+    synthetic stand-in for ``ImageFolderDataset``).  uint8 by default (a
+    quarter of the bytes to the device; the trainer normalizes there); the
+    random stream is the same either way."""
+    rng = np.random.default_rng(seed)
+    n, h, w, _ = pool.shape
+    dt = np.float32 if as_float else np.uint8
+    for _ in range(steps):
+        idx = rng.integers(0, n, size=batch_size)
+        ys = rng.integers(0, max(h - patch, 0) + 1, size=batch_size)
+        xs = rng.integers(0, max(w - patch, 0) + 1, size=batch_size)
+        flip = rng.random(batch_size) < 0.5
+        out = np.empty((batch_size, patch, patch, 3), dt)
+        for b in range(batch_size):
+            crop = pool[idx[b], ys[b]:ys[b] + patch, xs[b]:xs[b] + patch]
+            if flip[b]:
+                crop = crop[:, ::-1]
+            out[b] = crop.astype(np.float32) / 255.0 if as_float else crop
+        yield out
+
+
+def synthetic_batches(batch_size: int, patch: int, steps: int,
+                      seed: int = 0) -> Iterator[np.ndarray]:
+    """Deterministic synthetic image stream (smooth waves and noise) for
+    tests and runs without a dataset on disk."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:patch, 0:patch].astype(np.float32) / patch
+    for _ in range(steps):
+        base = np.stack([yy, xx, (yy + xx) / 2], axis=-1)[None]
+        phase = rng.random((batch_size, 1, 1, 3)).astype(np.float32)
+        freq = rng.integers(1, 6, size=(batch_size, 1, 1, 3)).astype(np.float32)
+        img = 0.5 + 0.35 * np.sin(2 * np.pi * (freq * base + phase))
+        img += rng.normal(0, 0.02, img.shape).astype(np.float32)
+        yield np.clip(img, 0.0, 1.0).astype(np.float32)

@@ -1,17 +1,41 @@
-"""Entropy-model pieces the coding path needs (port of
-``mlic_tpu/entropy/models.py``): scale-index building, the factorized
-prior's parameters and medians, and its host-side CDF tables."""
+"""Entropy models (port of ``mlic_tpu/entropy/models.py``): the Gaussian
+likelihood and scale-index building of the conditional model, and the
+factorized prior over z (``EntropyBottleneck``) with its training half --
+likelihoods under uniform noise or rounding, STE quantization, the
+auxiliary quantile loss -- and its host-side CDF tables."""
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from mlic_tpu_torch.entropy.cdf import build_cdf_tables
-from mlic_tpu_torch.ops.math import lower_bound
+from mlic_tpu_torch.ops.math import lower_bound, quantize_ste
+
+LIKELIHOOD_BOUND = 1e-9
+TAIL_MASS = 1e-9
+
+
+def std_gaussian_cdf(x: torch.Tensor) -> torch.Tensor:
+    """Standard normal CDF via erfc (stable in both tails)."""
+    return 0.5 * torch.erfc(-x / math.sqrt(2.0))
+
+
+def gaussian_likelihood(y: torch.Tensor, scales: torch.Tensor,
+                        means: torch.Tensor,
+                        scale_bound: float = 0.11) -> torch.Tensor:
+    """P(round(y) | N(means, scales^2)) with the +-1/2 integration window
+    (models.py:39)."""
+    scales = lower_bound(scales, scale_bound)
+    values = torch.abs(y - means)
+    upper = std_gaussian_cdf((0.5 - values) / scales)
+    lower = std_gaussian_cdf((-0.5 - values) / scales)
+    return lower_bound(upper - lower, LIKELIHOOD_BOUND)
 
 
 def build_indexes(scales: torch.Tensor, scale_table: torch.Tensor,
@@ -24,15 +48,19 @@ def build_indexes(scales: torch.Tensor, scale_table: torch.Tensor,
 
 
 class EntropyBottleneck(nn.Module):
-    """Learned factorized prior over z (models.py:104): the per-channel
-    monotone-MLP parameters, kept under the flax names.  Coding reads only
-    the medians and the tables built from these parameters."""
+    """Learned factorized prior over z (models.py:104): a per-channel
+    monotone MLP CDF, kept under the flax names.  ``quantiles`` track the
+    (tail, median, 1 - tail) points and learn from the auxiliary loss
+    only.  Coding reads the medians and the tables built from these
+    parameters; training reads ``forward``, ``ste_quantize`` and
+    ``aux_loss``."""
 
     def __init__(self, channels: int, filters: Sequence[int] = (3, 3, 3, 3),
-                 init_scale: float = 10.0):
+                 init_scale: float = 10.0, tail_mass: float = TAIL_MASS):
         super().__init__()
         self.channels, self.filters, self.init_scale = (
             channels, tuple(filters), init_scale)
+        self.tail_mass = tail_mass
         f = (1,) + self.filters + (1,)
         for k in range(len(self.filters) + 1):
             self.register_parameter(f"matrix_{k}", nn.Parameter(
@@ -46,6 +74,71 @@ class EntropyBottleneck(nn.Module):
 
     def medians(self) -> torch.Tensor:
         return self.quantiles[:, 0, 1]
+
+    def _logits_cumulative(self, x: torch.Tensor,
+                           stop_gradient: bool) -> torch.Tensor:
+        """x: [C, 1, L] -> logits [C, 1, L] (models.py:153); with
+        ``stop_gradient`` no gradient reaches the density parameters."""
+        n_layers = len(self.filters) + 1
+        for k in range(n_layers):
+            m, b = getattr(self, f"matrix_{k}"), getattr(self, f"bias_{k}")
+            if stop_gradient:
+                m, b = m.detach(), b.detach()
+            x = torch.matmul(F.softplus(m), x) + b
+            if k < n_layers - 1:
+                fac = getattr(self, f"factor_{k}")
+                if stop_gradient:
+                    fac = fac.detach()
+                x = x + torch.tanh(fac) * torch.tanh(x)
+        return x
+
+    def _likelihood(self, v: torch.Tensor) -> torch.Tensor:
+        """v: [C, L] channel-major values -> likelihoods [C, L]
+        (models.py:167)."""
+        lower = self._logits_cumulative(v[:, None, :] - 0.5, False)
+        upper = self._logits_cumulative(v[:, None, :] + 0.5, False)
+        sign = -torch.sign(lower + upper).detach()
+        lk = torch.abs(torch.sigmoid(sign * upper) - torch.sigmoid(sign * lower))
+        return lk[:, 0, :]
+
+    def forward(self, z: torch.Tensor, training: bool = True,
+                noise: torch.Tensor | None = None,
+                generator: torch.Generator | None = None):
+        """z: [B, C, H, W] -> (z_tilde, likelihoods), both [B, C, H, W]
+        (models.py:178).  Training adds uniform noise in [-1/2, 1/2) laid
+        out ``[C, B*H*W]`` with (b, h, w) raveled as in the NHWC latent --
+        the layout of the JAX package's draw; ``noise`` gives it, else it
+        is drawn from ``generator``.  Evaluation rounds around the
+        medians."""
+        b, c, h, w = z.shape
+        zc = z.permute(1, 0, 2, 3).reshape(c, b * h * w)
+        if training:
+            if noise is None:
+                noise = torch.rand(zc.shape, generator=generator,
+                                   device=zc.device, dtype=zc.dtype) - 0.5
+            v = zc + noise
+        else:
+            medians = self.medians()[:, None]
+            v = torch.round(zc - medians) + medians
+        lk = lower_bound(self._likelihood(v), LIKELIHOOD_BOUND)
+
+        def nchw(t):
+            return t.reshape(c, b, h, w).permute(1, 0, 2, 3)
+        return nchw(v), nchw(lk)
+
+    def ste_quantize(self, z: torch.Tensor) -> torch.Tensor:
+        """STE round to the medians (models.py:194); z is NCHW."""
+        medians = self.medians()[None, :, None, None]
+        return quantize_ste(z - medians) + medians
+
+    def aux_loss(self) -> torch.Tensor:
+        """Pulls the quantiles to (tail/2, 1/2, 1 - tail/2) of the CDF
+        (models.py:200); the density parameters are detached."""
+        logits = self._logits_cumulative(self.quantiles, stop_gradient=True)
+        t = math.log(2.0 / self.tail_mass - 1.0)
+        target = torch.tensor([-t, 0.0, t], dtype=logits.dtype,
+                              device=logits.device).reshape(1, 1, 3)
+        return torch.sum(torch.abs(logits - target))
 
     def numpy_params(self) -> dict:
         return {k: v.detach().cpu().numpy()

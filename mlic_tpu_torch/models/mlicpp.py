@@ -1,17 +1,20 @@
-"""MLIC++ codec model, PyTorch (port of ``mlic_tpu/models/mlicpp.py``).
+"""MLIC++ model, PyTorch (port of ``mlic_tpu/models/mlicpp.py``).
 
-The coding halves of ``MLICPlusPlus`` for fixed-rate configurations with
-the full-width decoder: ``analyze`` (g_a, h_a, z rounding), the encode pass
-(``codec_encode_pass``: h_s, then per slice an anchor and a non-anchor
-checkerboard phase through the channel, global and local contexts) and the
-format-v4 device decode (``codec_device_pass_v4``: z decoded from the
-stream by integer-row bisection, then the same slice loop with each phase's
-symbols decoded on the device).
+``MLICPlusPlus`` for fixed-rate configurations with the full-width decoder:
+the training forward (``forward``: noisy z likelihoods, STE rounding of y,
+the per-slice checkerboard, channel and global contexts) and its auxiliary
+loss, and the coding halves: ``analyze`` (g_a, h_a, z rounding), the
+encode pass (``codec_encode_pass``: h_s, then per slice an anchor and a
+non-anchor checkerboard phase through the channel, global and local
+contexts) and the format-v4 device decode (``codec_device_pass_v4``: z
+decoded from the stream by integer-row bisection, then the same slice loop
+with each phase's symbols decoded on the device).
 
-Encode and decode run ONE slice loop (``_slices``) that differs only in how
-a phase obtains its integer symbols, so both directions call the same
-torch functions on the same shapes and layouts: that is what makes the
-entropy parameters, and hence the round trip, bit-exact.
+Training, encode and decode run ONE slice loop (``_slices``) that differs
+only in how a phase obtains its quantized values, so both coding
+directions call the same torch functions on the same shapes and layouts:
+that is what makes the entropy parameters, and hence the round trip,
+bit-exact.
 
 Methods take and return NHWC arrays, as the JAX package's do; the modules
 inside are NCHW.  Module names follow the flax tree (``local_0``,
@@ -25,7 +28,11 @@ from torch import nn
 
 from mlic_tpu_torch.entropy.cdf import get_scale_table
 from mlic_tpu_torch.entropy.device_rans import make_decoder, phase_order
-from mlic_tpu_torch.entropy.models import EntropyBottleneck, build_indexes
+from mlic_tpu_torch.entropy.models import (
+    EntropyBottleneck,
+    build_indexes,
+    gaussian_likelihood,
+)
 from mlic_tpu_torch.models.config import ModelConfig
 from mlic_tpu_torch.models.context import (
     ChannelContext,
@@ -48,6 +55,7 @@ from mlic_tpu_torch.ops.math import (
     ckbd_nonanchor,
     ckbd_nonanchor_squeeze,
     ckbd_nonanchor_unsqueeze,
+    quantize_ste,
 )
 
 # transform_dtype -> (compute dtype of g_a/h_a/g_s, GDN dtype), as
@@ -61,12 +69,21 @@ _TRANSFORM_DTYPES = {
 }
 
 
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """A copy with the canonical row-major strides.  ``contiguous()`` keeps
+    a permuted tensor whose moved axes have size 1 (a z of 1x1) as it is,
+    with channels-last strides, and a convolution picks its algorithm by
+    that layout: the encoder's h_s would then round differently from the
+    decoder's, and a stream would not decode."""
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def to_nchw(t: torch.Tensor) -> torch.Tensor:
-    return t.permute(0, 3, 1, 2).contiguous()
+    return _dense(t.permute(0, 3, 1, 2))
 
 
 def to_nhwc(t: torch.Tensor) -> torch.Tensor:
-    return t.permute(0, 2, 3, 1).contiguous()
+    return _dense(t.permute(0, 2, 3, 1))
 
 
 def nhwc_flat(t: torch.Tensor) -> torch.Tensor:
@@ -138,9 +155,10 @@ class MLICPlusPlus(nn.Module):
             torch.cat([hyper_means] + list(y_hat_slices) + [current], 1))
 
     def _slices(self, hyper_params, phase):
-        """The slice loop both coding directions share (mlicpp.py:647-672).
-        ``phase(idx, squeeze, unsqueeze, scales, means)`` returns the
-        reconstructed (unsqueezed) half of slice ``idx``."""
+        """The slice loop that training and both coding directions share
+        (mlicpp.py:186-215, 647-672).  ``phase(idx, squeeze, unsqueeze,
+        scales, means)`` returns the reconstructed (unsqueezed) half of
+        slice ``idx``."""
         _, hyper_means = hyper_params.chunk(2, 1)
         y_hat_slices = []
         for idx in range(self.cfg.slice_num):
@@ -166,6 +184,44 @@ class MLICPlusPlus(nn.Module):
                 "lrp_nonanchor", idx, hyper_means, y_hat_slices, y_hat_slice))
             y_hat_slices.append(y_hat_slice)
         return torch.cat(y_hat_slices, 1)
+
+    # --------------------------- training ------------------------------
+    def forward(self, x, training: bool = True, noise=None, generator=None):
+        """Training forward (mlicpp.py:173-222).  x: [B,H,W,3] in [0, 1],
+        NHWC.  Returns ``{"x_hat": [B,H,W,3], "likelihoods": {"y": [B,M,h,w],
+        "z": [B,N,h/4,w/4]}}``: the likelihoods are NCHW, the flax ones
+        transposed.  ``training`` selects noise (``noise`` in the
+        bottleneck's ``[N, B*h/4*w/4]`` layout, else drawn from
+        ``generator``) or rounding for z; y is STE-rounded around its
+        means either way."""
+        C = self.cfg.slice_ch
+        y = self.g_a(to_nchw(x.float()))
+        z = self.h_a(y)
+        _, z_likelihoods = self.entropy_bottleneck(z, training, noise,
+                                                   generator)
+        hyper_params = self.h_s(self.entropy_bottleneck.ste_quantize(z))
+        y_lks, anchor = [], {}
+
+        def phase(idx, squeeze, unsqueeze, scales, means):
+            mask = (ckbd_anchor if squeeze is ckbd_anchor_squeeze
+                    else ckbd_nonanchor)
+            y_slice = y[:, idx * C:(idx + 1) * C]
+            scales, means = mask(scales), mask(means)
+            if mask is ckbd_anchor:
+                anchor["scales"], anchor["means"] = scales, means
+            else:
+                y_lks.append(gaussian_likelihood(
+                    y_slice, anchor["scales"] + scales,
+                    anchor["means"] + means))
+            return quantize_ste(mask(y_slice) - means) + means
+
+        y_hat = self._slices(hyper_params, phase)
+        return {"x_hat": to_nhwc(self.g_s(y_hat)),
+                "likelihoods": {"y": torch.cat(y_lks, 1),
+                                "z": z_likelihoods}}
+
+    def aux_loss(self) -> torch.Tensor:
+        return self.entropy_bottleneck.aux_loss()
 
     # ------------------------- analysis only ---------------------------
     def analyze(self, x):

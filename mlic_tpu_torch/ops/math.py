@@ -1,6 +1,8 @@
-"""Bound primitive and checkerboard geometry, NCHW.
+"""Bound and rounding primitives and checkerboard geometry, NCHW.
 
-Port of ``mlic_tpu/ops/math.py:22-130``.  The checkerboard functions act on
+Port of ``mlic_tpu/ops/math.py:22-130``.  ``lower_bound`` carries the JAX
+package's gradient rule; ``quantize_ste`` rounds with an identity
+gradient.  The checkerboard functions act on
 the last two (H, W) axes, so they take the port's NCHW tensors.  Anchor
 positions are (even row, odd col) U (odd row, even col), i.e. (h + w) odd.
 The squeeze/unsqueeze pair packs a checkerboard field into a dense
@@ -12,10 +14,41 @@ from __future__ import annotations
 import torch
 
 
+class _LowerBound(torch.autograd.Function):
+    """``max(x, bound)`` whose gradient passes where ``x >= bound`` or where
+    the incoming gradient would push x up (``g < 0``), and is 0 elsewhere
+    (math.py:22-36).  ``torch.maximum`` would split the gradient at ties,
+    where GDN's reparametrised parameters start."""
+
+    @staticmethod
+    def forward(ctx, x, bound):
+        ctx.save_for_backward(x, bound)
+        return torch.maximum(x, bound)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, bound = ctx.saved_tensors
+        return torch.where((x >= bound) | (g < 0), g, torch.zeros_like(g)), \
+            None
+
+
 def lower_bound(x: torch.Tensor, bound) -> torch.Tensor:
-    """``max(x, bound)`` (forward only: the port has no training path)."""
-    return torch.maximum(x, torch.as_tensor(bound, dtype=x.dtype,
-                                            device=x.device))
+    """``max(x, bound)`` with the gradient rule of ``_LowerBound``; no
+    gradient reaches ``bound``."""
+    bound = torch.as_tensor(bound, dtype=x.dtype, device=x.device)
+    if not torch.is_grad_enabled() or not x.requires_grad:
+        return torch.maximum(x, bound)
+    return _LowerBound.apply(x, bound.detach())
+
+
+def upper_bound(x: torch.Tensor, bound) -> torch.Tensor:
+    return -lower_bound(-x, -torch.as_tensor(bound, dtype=x.dtype,
+                                             device=x.device))
+
+
+def quantize_ste(x: torch.Tensor) -> torch.Tensor:
+    """Round with a straight-through (identity) gradient (math.py:39)."""
+    return x + (torch.round(x) - x).detach()
 
 
 def ckbd_mask(h: int, w: int, dtype=torch.float32, device=None):
@@ -33,6 +66,14 @@ def ckbd_anchor(y: torch.Tensor) -> torch.Tensor:
 def ckbd_nonanchor(y: torch.Tensor) -> torch.Tensor:
     m = ckbd_mask(y.shape[-2], y.shape[-1], y.dtype, y.device)
     return y * (1.0 - m)
+
+
+def ckbd_split(y: torch.Tensor):
+    return ckbd_anchor(y), ckbd_nonanchor(y)
+
+
+def ckbd_merge(anchor: torch.Tensor, nonanchor: torch.Tensor):
+    return anchor + nonanchor
 
 
 def _pack_rows(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:

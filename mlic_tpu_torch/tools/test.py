@@ -5,9 +5,11 @@
 
 Compresses every image of a folder to a real bitstream file, decompresses it
 and reports bpp, PSNR, MS-SSIM and the encode and decode wall-clock.  Runs
-on the CUDA card unless ``--cpu`` is given.  ``--checkpoint`` is a file
-that ``torch.load`` reads as a state_dict; without it the weights are
-seeded random ones, which exercise the codec but compress nothing.
+on the CUDA card unless ``--cpu`` is given.  ``--checkpoint`` is an orbax
+directory of the JAX package (e.g. ``ckpts/bench_default``, the trained
+MLICPP_S) or a torch file of the port (``weights.load_checkpoint``);
+without it the weights are seeded random ones, which exercise the codec
+but compress nothing.
 ``MLIC_FUSED_BLOCKS=1`` in the environment selects the fused block-tail
 kernel in g_a and g_s.  The codec picks its rANS lane count from the first
 image's size (``Codec(n_lanes="auto")``), as the reference CLI does.
@@ -24,7 +26,7 @@ from mlic_tpu_torch.codec import Codec
 from mlic_tpu_torch.data.folder import list_images, load_image
 from mlic_tpu_torch.eval import evaluate_codec
 from mlic_tpu_torch.models.registry import get_model
-from mlic_tpu_torch.weights import init_params
+from mlic_tpu_torch.weights import init_params, load_checkpoint
 
 
 def main(argv=None) -> dict:
@@ -32,7 +34,7 @@ def main(argv=None) -> dict:
     p.add_argument("--model", default="MLICPP_S")
     p.add_argument("--dataset", required=True, help="image folder (e.g. Kodak)")
     p.add_argument("--checkpoint", default=None,
-                   help="state_dict file for torch.load")
+                   help="orbax checkpoint directory or torch weights file")
     p.add_argument("--save-dir", default="./runs/eval")
     p.add_argument("--transform-dtype", default=None,
                    choices=["float32", "bfloat16", "bfloat16_mixed"])
@@ -44,8 +46,7 @@ def main(argv=None) -> dict:
         raise FileNotFoundError(f"no images under {args.dataset}")
     model = get_model(args.model, args.transform_dtype)
     if args.checkpoint:
-        state = torch.load(args.checkpoint, map_location="cpu",
-                           weights_only=True)
+        state = load_checkpoint(args.checkpoint)
     else:
         state = init_params(model, torch.Generator().manual_seed(0))
     model.load_state_dict(state, strict=True)

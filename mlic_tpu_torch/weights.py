@@ -1,4 +1,5 @@
-"""Weights for the port: from a flax parameter tree, or seeded random.
+"""Weights for the port: from a flax parameter tree, from a checkpoint file
+or directory, or seeded random.
 
 ``from_flax`` maps the JAX package's parameter tree (nested dicts of numpy
 arrays) onto the port's state_dict by path: the torch modules carry the
@@ -9,6 +10,9 @@ flax names, so only the leaf names and layouts change --
   Dense over the flattened window in (i*w + j)*C + c order,
 * LayerNorm ``scale`` -> ``weight``; everything else keeps name and shape.
 
+``to_flax`` is its inverse (the flax layout of a state_dict, to compare
+parameters and gradients leaf by leaf).  ``load_checkpoint`` reads an orbax
+directory of the JAX package or a torch file of the port.
 ``init_params`` draws random weights from the flax initializer families
 (their distributions, not their bits) with a ``torch.Generator``.
 """
@@ -16,6 +20,7 @@ flax names, so only the leaf names and layouts change --
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -25,6 +30,7 @@ from mlic_tpu_torch.entropy.models import EntropyBottleneck
 from mlic_tpu_torch.models.context import LocalContext
 from mlic_tpu_torch.models.layers import GDN
 from mlic_tpu_torch.models.mlicpp import MLICPlusPlus
+from mlic_tpu_torch.utils.checkpoint import read_orbax
 
 
 def _leaves(tree, prefix=()):
@@ -55,6 +61,51 @@ def from_flax(params) -> dict:
             raise ValueError(f"two flax leaves map to {key}")
         out[key] = torch.from_numpy(np.ascontiguousarray(a))
     return out
+
+
+def flax_path(name: str, ndim: int) -> tuple:
+    """A state_dict name and its tensor's rank -> the flax path: ``weight``
+    is a LayerNorm ``scale`` when 1-D, else a ``kernel``."""
+    *parents, leaf = name.split(".")
+    if leaf == "weight":
+        leaf = "scale" if ndim == 1 else "kernel"
+    return (*parents, leaf)
+
+
+def flax_keystr(name: str, ndim: int) -> str:
+    """The flax path as ``jax.tree_util.keystr`` prints it:
+    ``"['g_a']['rbs0']['conv1']['dw']['depth']['kernel']"``."""
+    return "".join(f"['{p}']" for p in flax_path(name, ndim))
+
+
+def to_flax(state_dict: dict) -> dict:
+    """The inverse of ``from_flax``: state_dict -> nested dict of f32 numpy
+    arrays in the flax layout (OIHW -> HWIO, Dense (out, in) -> (in, out))."""
+    tree = {}
+    for name, t in state_dict.items():
+        a = t.detach().float().cpu().numpy()
+        path = flax_path(name, a.ndim)
+        if path[-1] == "kernel":
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(a)
+    return tree
+
+
+def load_checkpoint(path: str) -> dict:
+    """Weights from a checkpoint -> state_dict of f32 CPU tensors.  ``path``
+    is an orbax directory of the JAX package (its ``params``, e.g.
+    ``ckpts/bench_default``), a state_dict file, or a training checkpoint
+    of the port (``utils.checkpoint.CheckpointManager``: its ``model``)."""
+    if os.path.isdir(path):
+        tree = read_orbax(path)
+        return from_flax(tree.get("params", tree))
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj.get("model"), dict):
+        obj = obj["model"]
+    return {k: v.float() for k, v in obj.items()}
 
 
 def _lecun_normal(shape, generator) -> torch.Tensor:

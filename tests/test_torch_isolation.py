@@ -13,7 +13,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _BLOCKED_IMPORTS = r"""
 import importlib, pkgutil, sys
-BLOCKED = ("jax", "jaxlib", "flax", "orbax", "mlic_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
+           "mlic_tpu")
 
 class Block:
     def find_spec(self, name, path=None, target=None):
@@ -39,7 +40,7 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORTS], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 29     # every module was imported
+    assert int(out.stdout.split()[-1]) >= 36     # every module was imported
 
 
 def test_entry_points_default_to_cuda():
@@ -116,15 +117,16 @@ def test_fused_kernel_source_is_its_own_cuda():
 
 def test_port_sources_name_no_jax_import():
     """No module of the port, nor the smoke script, imports JAX, flax,
-    orbax or the JAX package, even inside a function."""
+    optax, orbax, tensorstore or the JAX package, even inside a
+    function."""
     import re
 
-    pat = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|orbax|mlic_tpu)"
-                     r"(\.|\s|$)", re.M)
+    pat = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|optax|orbax|"
+                     r"tensorstore|mlic_tpu)(\.|\s|$)", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "mlic_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
-    assert len(files) >= 30
+    assert len(files) >= 38
     for f in files:
         with open(f) as fh:
             assert not pat.search(fh.read()), f
