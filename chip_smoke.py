@@ -75,7 +75,25 @@
    one 512-lane request of 8 dead-leaves frames, bit-exact with K1-K4, K6
    and K7 launched; its real bpp beside ``Trainer.evaluate``'s likelihood
    estimate on the same frames;
-12. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+12. path 4, variable-bitrate serving (the ``vbr_serve`` line): MLICPP_S_VBR
+   under ``bfloat16`` at 512 lanes on the trained MLICPP_S weights
+   (``load_matching``: every trained leaf taken, Gain at gain_init, whose
+   top level is 1.0), one batch of 8 frames at each of the 6 levels and at
+   ``inputscale`` 0.3, two rounds (the second timed): each request
+   bit-exact with K7, K3, K6 and K4 launched, level 5's streams byte-equal
+   to path 1's MLICPP_S codec's on the same frames, bpp rising with the
+   level, bpp, escape share and encode/decode ms per level; profiles of
+   levels 0 and 5 (the port's kernels' device time per request);
+   ``evaluate_codec_vbr`` over one frame at levels 0 and 5 through files
+   with the VBR header; one ``vr_entbttlnck`` + ``quant_offset`` model on
+   seeded weights whose level 0 needs wider factorized-prior rows than its
+   top level, coded at both (the width ratchet, QuantABCD on the card);
+13. path 5, MGDA training (the ``vbr_train`` line): three steps of
+   MLICPP_S_VBR from the trained weights under ``bfloat16_mixed``, batch 8
+   of 256x256 crops, all 6 levels a step: ms a step, peak memory, losses
+   finite, alpha on the simplex, no kernel launched; one f32 step at 1 x
+   128^2 against the CPU at path 3's tolerances;
+14. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 
 Exits non-zero, before printing any result, without CUDA or without the
@@ -151,6 +169,16 @@ LMBDA = 0.0483
 # relative tolerances of the loss and of the gradient's global norm.
 CPU_STEP_SHAPE = (1, 128, 128, 3)
 CPU_LOSS_RTOL, CPU_GRAD_NORM_RTOL = 1e-4, 1e-3
+# Paths 4 and 5: the variable-bitrate model at MLICPP_S's width, on the
+# trained MLICPP_S weights (its Gain at gain_init, whose top level is 1.0);
+# one request above the levels' range at a continuous gain; MGDA steps.
+VBR_MODEL = "MLICPP_S_VBR"
+VBR_INPUTSCALE = 0.3
+VBR_TOP = 5                     # gain 1.0: MLICPP_S's arithmetic
+VBR_TRAIN_STEPS = 3
+# the kernels a coded request launches (K1 and K2 run in update only)
+REQUEST_KERNELS = ("rans_encode_prep", "rans_encode_scan",
+                   "rans_encode_compact", "rans_decode_phase")
 KERNEL_SYMBOLS = {"select_rows": "select_rows_kernel",
                   "eval_cdf": "eval_cdf_kernel",
                   "rans_encode_prep": "rans_encode_prep_kernel",
@@ -340,11 +368,13 @@ def device_rows(prof) -> tuple:
 
 
 def profile_request(codec, x, wall_ms: dict, top: int = 8,
-                    label: str = "profile"):
+                    label: str = "profile", level: dict | None = None):
     """Device busy time of one compress and one decompress under
     ``torch.profiler`` (kernels, copies and sets on the card), the idle
     share against the median unprofiled wall time of the same phase, and
-    the top kernels by device time."""
+    the top kernels by device time; ``level`` ({"s", "inputscale"}) codes
+    a VBR model's request at that level.  Returns the printed dict."""
+    level = level or {}
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -355,9 +385,9 @@ def profile_request(codec, x, wall_ms: dict, top: int = 8,
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             if phase == "compress":
-                enc = codec.compress(x)
+                enc = codec.compress(x, **level)
             else:
-                codec.decompress(enc["strings"], enc["shape"])
+                codec.decompress(enc["strings"], enc["shape"], **level)
             torch.cuda.synchronize()
         rows, _ = device_rows(prof)
         busy = sum(r[0] for r in rows)
@@ -371,6 +401,7 @@ def profile_request(codec, x, wall_ms: dict, top: int = 8,
                       "port_kernels_ms_launches": ours,
                       "top": [[k[:70], ms, n] for ms, n, k in rows[:top]]}
     print(json.dumps({label: out}), flush=True)
+    return out
 
 
 def make_payload(codec, rng, batch: int = BATCH):
@@ -1593,6 +1624,282 @@ def serve_after_training(trainer, frames) -> dict:
     return counts
 
 
+def vbr_model(state, transform_dtype, **overrides):
+    """MLICPP_S_VBR with every leaf it shares with the trained MLICPP_S
+    taken from ``state`` (``load_matching``); Gain stays at gain_init,
+    QuantABCD at its seeded draw.  Returns (model, names taken)."""
+    import torch
+
+    from mlic_tpu_torch.models.registry import get_model
+    from mlic_tpu_torch.utils.checkpoint import load_matching
+    from mlic_tpu_torch.weights import init_params
+    model = get_model(VBR_MODEL, transform_dtype=transform_dtype,
+                      **overrides)
+    own = init_params(model, torch.Generator().manual_seed(SEED))
+    merged, taken = load_matching(own, state)
+    model.load_state_dict(merged)
+    return model, taken
+
+
+def vbr_request(codec, x, s: int, inputscale: float = 0.0) -> tuple:
+    """One VBR request, compress then decompress at the level: bit-exact
+    y_hat and x_hat, finite, the input's shape.  Returns (row, encoded)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc = codec.compress(x, s=s, inputscale=inputscale)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    dec = codec.decompress(enc["strings"], enc["shape"], s=s,
+                           inputscale=inputscale)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if not (torch.equal(enc["y_hat"], dec["y_hat"])
+            and torch.equal(enc["x_hat"], dec["x_hat"])):
+        raise AssertionError(f"VBR level {s}, inputscale {inputscale}: the "
+                             "decoder's y_hat or x_hat differs")
+    if tuple(dec["x_hat"].shape) != tuple(x.shape) \
+            or not bool(torch.isfinite(dec["x_hat"]).all()):
+        raise AssertionError(f"VBR level {s}: bad x_hat")
+    return ({"level": s, "inputscale": inputscale,
+             "gain": float(codec._scale_for(s, inputscale)),
+             **stream_stats(codec, enc), "encode_ms": (t1 - t0) * 1e3,
+             "decode_ms": (t2 - t1) * 1e3}, enc)
+
+
+def vbr_options_request(x) -> dict:
+    """``vr_entbttlnck`` and ``quant_offset`` on seeded weights: the
+    bottleneck's quantiles widened to +-1400 and zqstep set to give a step
+    near 1.0 at the top level and 0.5 at level 0, so level 0's
+    factorized-prior rows outgrow the Gaussian rows' width.  Codes the top
+    level, then level 0 (the codec rebuilds the cached step at the wider
+    width), then decodes the top level's stream again."""
+    import torch
+
+    from mlic_tpu_torch.codec import Codec
+    from mlic_tpu_torch.models.registry import get_model
+    from mlic_tpu_torch.weights import init_params
+    model = get_model(VBR_MODEL, transform_dtype="bfloat16",
+                      vr_entbttlnck=True, quant_offset=True)
+    model.load_state_dict(init_params(model,
+                                      torch.Generator().manual_seed(SEED)))
+    with torch.no_grad():
+        q = model.entropy_bottleneck.quantiles
+        q[:, 0, 0], q[:, 0, 2] = q[:, 0, 1] - 1400.0, q[:, 0, 1] + 1400.0
+        model.zqstep_0.weight.fill_(1.0)
+        model.zqstep_0.bias.zero_()
+        model.zqstep_1.weight.copy_(torch.eye(10))
+        model.zqstep_1.bias.zero_()
+        # softplus(0.6097 - 0.06835 / gain): 1.0 at gain 1, 0.5 at 0.0656
+        model.zqstep_2.weight.fill_(-0.06835 / 10)
+        model.zqstep_2.bias.fill_(0.6097)
+    codec = Codec(model, n_lanes=N_LANES, device="cuda")
+    codec.update()
+    rows, widths = [], []
+    first = None
+    for s in (VBR_TOP, 0):
+        row, enc = vbr_request(codec, x, s)
+        first = first or enc
+        row["z_step"] = codec._z_qs_for(s, 0.0)
+        rows.append(row)
+        widths.append(codec.tables["cdf_rows"].shape[1])
+    dec = codec.decompress(first["strings"], first["shape"], s=VBR_TOP)
+    again = torch.equal(dec["y_hat"], first["y_hat"])
+    out = {"weights": "seeded, quantiles +-1400", "vr_entbttlnck": True,
+           "quant_offset": True, "requests": rows, "row_widths": widths,
+           "z_steps_row": codec.z_steps_row,
+           "top_level_decodes_after_ratchet": again}
+    if not (widths[1] > widths[0] and again):
+        print(json.dumps({"vbr_options": out}), flush=True)
+        raise AssertionError(f"VBR options: widths {widths}, first stream "
+                             f"decodes after the ratchet: {again}")
+    return out
+
+
+def vbr_serve_path(state, frames, fixed_codec) -> tuple:
+    """Path 4: MLICPP_S_VBR under ``bfloat16`` at 512 lanes on the trained
+    weights (load_matching), one batch of 8 frames at every level and at
+    ``inputscale`` VBR_INPUTSCALE, twice (the second round timed); each
+    request bit-exact, K7, K3, K6 and K4 launched; level 5's streams equal
+    to the MLICPP_S codec's on the same frames; bpp rising with the level.
+    Then a profile of levels 0 and 5 (the port's kernels' device time per
+    request), ``evaluate_codec_vbr`` over one frame at levels 0 and 5
+    through files, and the options request.  Returns (launch counts of
+    the coded requests, {level: profile})."""
+    import torch
+
+    from mlic_tpu_torch.codec import Codec
+    from mlic_tpu_torch.eval import evaluate_codec_vbr
+    from mlic_tpu_torch.ops import _build
+    model, taken = vbr_model(state, "bfloat16")
+    if len(taken) != len(state) or not torch.equal(
+            model.Gain.detach().cpu(), torch.tensor(model.cfg.gain_init)):
+        raise AssertionError(f"VBR weights: {len(taken)} of {len(state)} "
+                             "trained leaves taken, or Gain != gain_init")
+    x = frames[0]
+    requests = [(s, 0.0) for s in range(len(model.cfg.lmbda))]
+    requests.append((0, VBR_INPUTSCALE))
+    fixed = fixed_codec.compress(x)["strings"]
+    _build.reset_launch_counts()
+    codec = Codec(model, n_lanes=N_LANES, device="cuda")
+    codec.update()
+    rows = []
+    for rnd in range(2):
+        for s, isc in requests:
+            before = _build.launch_counts()
+            row, enc = vbr_request(codec, x, s, isc)
+            after = _build.launch_counts()
+            row["launches"] = {k: after[k] - before[k] for k in after}
+            missing = [k for k in REQUEST_KERNELS if not row["launches"][k]]
+            if missing:
+                raise AssertionError(f"VBR level {s}: not launched {missing}")
+            if s == VBR_TOP and not isc and enc["strings"] != fixed:
+                raise AssertionError("VBR level 5 (gain 1.0): streams "
+                                     "differ from the MLICPP_S codec's")
+            if rnd == 1:
+                rows.append(row)
+    counts = _build.launch_counts()
+    bpp = [r["bpp"] for r in rows[:len(model.cfg.lmbda)]]
+    profiles = {}
+    for s in (0, VBR_TOP):
+        r = rows[s]
+        for _ in range(PROFILE_ATTEMPTS):
+            prof = profile_request(
+                codec, x, {"compress": r["encode_ms"],
+                           "decompress": r["decode_ms"]},
+                label=f"profile_vbr_level_{s}", level={"s": s})
+            ours = {k: prof["compress"]["port_kernels_ms_launches"][k][1]
+                    + prof["decompress"]["port_kernels_ms_launches"][k][1]
+                    for k in REQUEST_KERNELS}
+            if all(ours.values()):
+                break
+        else:
+            raise AssertionError(f"VBR level {s}: the profiler shows no "
+                                 f"launch of {ours}")
+        profiles[s] = prof
+    with tempfile.TemporaryDirectory() as d:
+        ev = evaluate_codec_vbr(codec, [x[0].astype(np.float32) / 255.0], d,
+                                levels=[0, VBR_TOP], log=lambda line: None)
+        headers = {}
+        for s in (0, VBR_TOP):
+            with open(os.path.join(d, f"level_{s}", "img_000.bin"), "rb") as f:
+                headers[s] = list(np.frombuffer(f.read(16), ">u4"))
+    options = vbr_options_request(x)
+    out = {"model": VBR_MODEL, "weights": "trained MLICPP_S (load_matching)",
+           "transform_dtype": "bfloat16", "lanes": N_LANES,
+           "batch": list(x.shape), "leaves_taken": len(taken),
+           "gain": list(model.cfg.gain_init), "levels": rows,
+           "bpp_by_level": bpp, "level_5_streams_equal_MLICPP_S": True,
+           "launches": counts,
+           "evaluate_codec_vbr": {str(k): v for k, v in ev.items()},
+           "file_headers": {str(k): [int(v) for v in h]
+                            for k, h in headers.items()},
+           "options": options}
+    print(json.dumps({"vbr_serve": out}), flush=True)
+    if any(b >= a for a, b in zip(bpp[1:], bpp[:-1])):
+        raise AssertionError(f"VBR bpp does not rise with the level: {bpp}")
+    if not ev[0]["bpp"] < ev[VBR_TOP]["bpp"] or any(
+            headers[s][2] != s for s in headers):
+        raise AssertionError(f"evaluate_codec_vbr: {ev}, headers {headers}")
+    return counts, profiles
+
+
+def vbr_cpu_step(state, pool) -> dict:
+    """One f32 MGDA step of MLICPP_S_VBR at batch 1, 128x128, on the card
+    and on the CPU, with the same noise: the loss (mean over levels), each
+    level's loss and the gradient's global norm within path 3's relative
+    tolerances."""
+    from mlic_tpu_torch.models.config import model_config
+    from mlic_tpu_torch.train.trainer import TrainConfig, create_train_state
+    from mlic_tpu_torch.train.vbr import vbr_train_step
+    import torch
+    b, h, w, _ = CPU_STEP_SHAPE
+    x = pool[:b, :h, :w]
+    noise = torch.from_numpy(np.random.default_rng(SEED + 11).uniform(
+        -0.5, 0.5, (model_config(VBR_MODEL).N, b * (h // 64) * (w // 64))
+    ).astype(np.float32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model, _ = vbr_model(state, "float32")
+        cfg = TrainConfig(lmbda=LMBDA, seed=SEED)
+        m = vbr_train_step(create_train_state(model, cfg, dev), x, cfg,
+                           noise=noise.to(dev))
+        out[dev] = {"loss": float(m["loss"]),
+                    "loss_per_level": m["loss_per_level"].tolist(),
+                    "grad_norm": float(m["grad_norm"]),
+                    "alpha": m["alpha"].tolist()}
+    per_level = max(abs(a - c) / abs(c) for a, c in zip(
+        out["cuda"]["loss_per_level"], out["cpu"]["loss_per_level"]))
+    row = {"shape": list(CPU_STEP_SHAPE), **out,
+           "loss_rel_diff": abs(out["cuda"]["loss"] - out["cpu"]["loss"])
+           / abs(out["cpu"]["loss"]),
+           "level_loss_max_rel_diff": per_level,
+           "grad_norm_rel_diff": abs(out["cuda"]["grad_norm"]
+                                     - out["cpu"]["grad_norm"])
+           / out["cpu"]["grad_norm"],
+           "tolerances": [CPU_LOSS_RTOL, CPU_GRAD_NORM_RTOL]}
+    if not (row["loss_rel_diff"] <= CPU_LOSS_RTOL
+            and per_level <= CPU_LOSS_RTOL
+            and row["grad_norm_rel_diff"] <= CPU_GRAD_NORM_RTOL):
+        print(json.dumps({"vbr_cpu_step": row}), flush=True)
+        raise AssertionError(f"f32 MGDA step on the card differs from the "
+                             f"CPU: {row}")
+    return row
+
+
+def vbr_train_path(state) -> dict:
+    """Path 5: MGDA multi-rate training of MLICPP_S_VBR from the trained
+    weights under ``bfloat16_mixed``, Adam, batches of 8 random 256x256
+    crops of path 3's dead-leaves pool, all 6 levels a step: VBR_TRAIN_STEPS
+    steps timed, peak memory, losses finite, alpha on the simplex, no
+    kernel launched; then the f32 step against the CPU.  Returns the
+    launch counts."""
+    import torch
+
+    from mlic_tpu_torch.data.folder import dead_leaves_pool, pool_batches
+    from mlic_tpu_torch.ops import _build
+    from mlic_tpu_torch.train.trainer import TrainConfig, create_train_state
+    from mlic_tpu_torch.train.vbr import vbr_train_step
+    pool = dead_leaves_pool(TRAIN_POOL, TRAIN_POOL_SIZE, SEED + 9,
+                            cache_dir="")
+    batches = list(pool_batches(pool, TRAIN_BATCH, TRAIN_PATCH,
+                                VBR_TRAIN_STEPS, seed=SEED + 2))
+    with torch.enable_grad():
+        model, _ = vbr_model(state, "bfloat16_mixed")
+        cfg = TrainConfig(lmbda=LMBDA, metric="mse", optimizer="adam",
+                          seed=SEED)
+        st = create_train_state(model, cfg, "cuda")
+        _build.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        ms, metrics = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = vbr_train_step(st, b, cfg)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: v.tolist() for k, v in m.items()})
+        counts = _build.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        row = {"model": VBR_MODEL, "weights": "trained MLICPP_S "
+               "(load_matching)", "transform_dtype": "bfloat16_mixed",
+               "optimizer": "adam", "metric": "mse",
+               "levels": len(model.cfg.lmbda), "lmbda": list(model.cfg.lmbda),
+               "batch": [TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH, 3],
+               "step_ms": ms, "peak_mem_gib": peak, "steps": metrics,
+               "launches": counts}
+        row["cpu_step"] = vbr_cpu_step(state, pool)
+    print(json.dumps({"vbr_train": row}), flush=True)
+    finite = all(np.isfinite(m["loss_per_level"]).all()
+                 and np.isfinite(m["grad_norm"]) for m in metrics)
+    simplex = all(min(m["alpha"]) >= 0 and abs(sum(m["alpha"]) - 1) < 1e-5
+                  for m in metrics)
+    if not finite or not simplex or any(counts.values()):
+        raise AssertionError(f"VBR training: finite {finite}, alpha on the "
+                             f"simplex {simplex}, launches {counts}")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1657,11 +1964,20 @@ def main() -> int:
     check_small_reference(state)
     trainer, train_counts = train_path(state)
     after = serve_after_training(trainer, frames[0])
+    del trainer
+    vbr_counts, vbr_profiles = vbr_serve_path(state, frames, codec)
+    vbr_train_counts = vbr_train_path(state)
     for k in kernels:
         k["launches_by_path"] = {"serve": counts[k["name"]],
                                  "eval": eval_counts[k["name"]],
                                  "train": train_counts[k["name"]],
-                                 "serve_after_training": after[k["name"]]}
+                                 "serve_after_training": after[k["name"]],
+                                 "vbr_serve": vbr_counts[k["name"]],
+                                 "vbr_train": vbr_train_counts[k["name"]]}
+        k["vbr_request_profiler_ms"] = {
+            f"level_{s}": sum(p[ph]["port_kernels_ms_launches"][k["name"]][0]
+                              for ph in ("compress", "decompress"))
+            for s, p in vbr_profiles.items()}
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,12 @@ prior's rows, combined so one stream carries z and y.  The table must be
 rANS-valid and pass the decode- and encode-shaped self-checks, else
 ``update`` raises with the count of entries that differ -- there is no
 host-table fallback.
+
+Variable-bitrate models code at a gain level ``s`` (or a continuous
+``inputscale``): the gain scales the symbols and the rows on the device,
+and under a variable-rate bottleneck the level's z step selects
+factorized-prior rows built for that step, cached per step.  All cached
+steps share one row width, ratcheted up when a step needs wider rows.
 """
 
 from __future__ import annotations
@@ -108,6 +114,11 @@ class Codec:
         self.n_steps = 0
         self.z_rows_base = 0
         self.z_steps_row = 0
+        self._gauss = None          # (row params, lengths, offsets, table)
+        self._width = 0             # the combined rows' width, ratcheted
+        self._by_step = {}          # z step -> combined device tables
+        self._eb_cache = {}         # z step -> factorized-prior tables
+        self._zqs_cache = {}        # (s, inputscale) -> z step
 
     @torch.no_grad()
     def update(self, scale_table: np.ndarray | None = None) -> None:
@@ -128,20 +139,71 @@ class Codec:
         if failed:
             raise RuntimeError(f"parametric CDF table rejected: {failed} "
                                "differ")
-        eb_cdfs, eb_len, eb_off, _ = entropy_bottleneck_tables(
-            self.model.entropy_bottleneck.numpy_params())
+        self._gauss = (params, lengths, offsets, table)
+        self._width = 0
+        self._by_step, self._eb_cache, self._zqs_cache = {}, {}, {}
+        self.n_steps = parametric.bisect_steps(lengths)
+        self.z_rows_base = table.shape[0]
+        self.tables = self._tables_for(1.0)
+
+    def _eb_for(self, z_qs: float):
+        """The factorized prior's tables at step ``z_qs``, cached
+        (codec.py:656)."""
+        if z_qs not in self._eb_cache:
+            self._eb_cache[z_qs] = entropy_bottleneck_tables(
+                self.model.entropy_bottleneck.numpy_params(), qs=z_qs)
+        return self._eb_cache[z_qs]
+
+    def _combined(self, z_qs: float) -> dict:
+        """Device tables of the Gaussian rows and the factorized prior's
+        rows at step ``z_qs`` (codec.py:440), at the ratcheted width."""
+        params, lengths, offsets, table = self._gauss
+        eb_cdfs, eb_len, eb_off, _ = self._eb_for(z_qs)
         n_g = table.shape[0]
         width = max(table.shape[1], eb_cdfs.shape[1])
-        width = -(-width // 64) * 64
-        rows = np.zeros((n_g + eb_cdfs.shape[0], width), np.int32)
+        self._width = max(-(-width // 64) * 64, self._width)
+        rows = np.zeros((n_g + eb_cdfs.shape[0], self._width), np.int32)
         rows[:n_g, :table.shape[1]] = table
         rows[n_g:, :eb_cdfs.shape[1]] = eb_cdfs
-        self.tables = parametric_device_tables(
+        return parametric_device_tables(
             params, np.concatenate([lengths, eb_len]),
             np.concatenate([offsets, eb_off]), rows, self.device)
-        self.n_steps = parametric.bisect_steps(lengths)
-        self.z_rows_base = n_g
-        self.z_steps_row = int(np.ceil(np.log2(width)))
+
+    def _tables_for(self, z_qs: float) -> dict:
+        """The combined tables of step ``z_qs``, cached (codec.py:499).
+        When a step needs wider rows than the cache holds, every cached
+        step is rebuilt at the new width, and ``z_steps_row`` (the z
+        bisection's depth) grows with it, so one width serves all."""
+        tabs = self._by_step.get(z_qs)
+        if tabs is None:
+            width0 = self._width
+            tabs = self._combined(z_qs)
+            if self._width != width0:
+                for q in self._by_step:
+                    self._by_step[q] = self._combined(q)
+            self._by_step[z_qs] = tabs
+            self.z_steps_row = int(np.ceil(np.log2(self._width)))
+            self.tables = self._by_step.get(1.0, tabs)
+        return tabs
+
+    def _scale_for(self, s: int, inputscale: float):
+        """The level's gain, a 0-d f32 tensor made on the device by an
+        index and a ``where`` (no host synchronization); the fixed rate's
+        python 1.0 skips it (codec.py:635)."""
+        if not self.model.cfg.vbr:
+            return 1.0
+        return self.model.gain_scale(s, inputscale)
+
+    def _z_qs_for(self, s: int, inputscale: float) -> float:
+        """The level's z step as a host float: 1.0 without a variable-rate
+        bottleneck, else one download per (level, inputscale), cached
+        (codec.py:644)."""
+        if not self.model.cfg.vr_entbttlnck:
+            return 1.0
+        key = (int(s), float(inputscale))
+        if key not in self._zqs_cache:
+            self._zqs_cache[key] = float(self.model.z_step(s, inputscale))
+        return self._zqs_cache[key]
 
     def _resolve_lanes(self, lanes: int) -> None:
         """Fix an ``n_lanes="auto"`` codec to ``lanes``, once."""
@@ -177,15 +239,18 @@ class Codec:
         return now
 
     @torch.no_grad()
-    def compress(self, x, timings: dict | None = None) -> dict:
-        """x: [B,H,W,3] uint8, or float in [0,1]; H, W multiples of 64.
-        Returns {"strings": [y_strings, z_strings], "shape": (h/4... z dims),
-        "y_hat": [B,h,w,M], "x_hat": [B,H,W,3], "cost_time": s}; the z
-        strings are empty in format v4 (z travels in the y stream) and x_hat
-        is the encode-side reconstruction g_s(y_hat), which ``decompress``
-        must reproduce bit for bit (``mlic_tpu/codec.py:971``).  A ``timings`` dict
-        receives the host-clock ms of each stage, each ended by a device
-        synchronize: analyze, encode_pass, rans_encode, assemble,
+    def compress(self, x, s: int = 0, inputscale: float = 0.0,
+                 timings: dict | None = None) -> dict:
+        """x: [B,H,W,3] uint8, or float in [0,1]; H, W multiples of 64;
+        a VBR model codes at level ``s``, or at ``inputscale`` where it is
+        > 0 (a fixed-rate model ignores both).  Returns {"strings":
+        [y_strings, z_strings], "shape": (h/4... z dims), "y_hat":
+        [B,h,w,M], "x_hat": [B,H,W,3], "cost_time": s}; the z strings are
+        empty in format v4 (z travels in the y stream) and x_hat is the
+        encode-side reconstruction g_s(y_hat), which ``decompress`` must
+        reproduce bit for bit (``mlic_tpu/codec.py:971``).  A ``timings``
+        dict receives the host-clock ms of each stage, each ended by a
+        device synchronize: analyze, encode_pass, rans_encode, assemble,
         synthesize."""
         t0 = time.perf_counter()
         if self.tables is None:
@@ -203,13 +268,17 @@ class Codec:
                                            x.shape[2]))
         else:
             self._check_auto_width(x.shape[1], x.shape[2])
-        y, z_symbols = self.model.analyze(x)
+        scale = self._scale_for(s, inputscale)
+        z_qs = self._z_qs_for(s, inputscale)
+        tables = self._tables_for(z_qs)
+        y, z_symbols = self.model.analyze(x, z_qs)
         t = self._stage(timings, "analyze", t)
-        y_hat, sym32, idx = self.model.codec_encode_pass(y, z_symbols)
+        y_hat, sym32, idx = self.model.codec_encode_pass(y, z_symbols, scale,
+                                                         z_qs)
         t = self._stage(timings, "encode_pass", t)
         b, zh, zw, _ = z_symbols.shape
         comp = encode_rans_v4(sym32, idx, z_symbols.reshape(b, -1),
-                              self.tables, self.n_lanes,
+                              tables, self.n_lanes,
                               2 * self.model.cfg.slice_num, self.z_rows_base)
         t = self._stage(timings, "rans_encode", t)
         streams = assemble_streams(comp, self.n_lanes)
@@ -223,28 +292,30 @@ class Codec:
                 "cost_time": time.perf_counter() - t0}
 
     @torch.no_grad()
-    def decompress(self, strings, shape, timings: dict | None = None) -> dict:
+    def decompress(self, strings, shape, s: int = 0, inputscale: float = 0.0,
+                   timings: dict | None = None) -> dict:
         """strings: [y_strings, z_strings] from ``compress``; shape: the z
-        spatial dims.  Returns {"x_hat", "y_hat", "cost_time"}, NHWC.  A
-        ``timings`` dict receives the ms of each stage, as in ``compress``:
-        parse, entropy_decode, synthesize."""
+        spatial dims; ``s`` and ``inputscale`` as the encoder's.  Returns
+        {"x_hat", "y_hat", "cost_time"}, NHWC.  A ``timings`` dict receives
+        the ms of each stage, as in ``compress``: parse, entropy_decode,
+        synthesize."""
         t0 = time.perf_counter()
         if self.tables is None:
             self.update()
         t = time.perf_counter()
         words, img_begin, escs, esc_begin = [], [], [], []
         n_words = n_esc = 0
-        for s in strings[0]:
-            if not stream_is_unified(s):
+        for stream in strings[0]:
+            if not stream_is_unified(stream):
                 raise ValueError("not a format-v4 stream")
-            lanes = stream_lanes(s)
+            lanes = stream_lanes(stream)
             if lanes > MAX_LANES:
                 raise ValueError(
                     f"stream has {lanes} lanes: the rANS kernels (K3, K4) "
                     f"take at most {MAX_LANES} lanes an image")
             if self.n_lanes is None:        # decode-only: follow the header
                 self._resolve_lanes(lanes)
-            _, w, e = parse_global(s)
+            _, w, e = parse_global(stream)
             if lanes != self.n_lanes:
                 raise ValueError(f"stream has {lanes} lanes, codec built "
                                  f"for {self.n_lanes}")
@@ -267,11 +338,14 @@ class Codec:
         esc_t = i32(np.concatenate(escs) if n_esc else np.zeros(1))
         zh, zw = shape
         img_begin_t, esc_begin_t = i32(img_begin), i32(esc_begin)
+        scale = self._scale_for(s, inputscale)
+        z_qs = self._z_qs_for(s, inputscale)
+        tables = self._tables_for(z_qs)
         t = self._stage(timings, "parse", t)
         y_hat = self.model.codec_device_pass_v4(
-            int(zh), int(zw), words_t, img_begin_t, self.tables,
+            int(zh), int(zw), words_t, img_begin_t, tables,
             self.n_lanes, self.n_steps, self.z_steps_row, self.z_rows_base,
-            esc_t, esc_begin_t)
+            esc_t, esc_begin_t, scale, z_qs)
         t = self._stage(timings, "entropy_decode", t)
         x_hat = self.model.synthesize(y_hat)
         self._stage(timings, "synthesize", t)

@@ -2,7 +2,9 @@
 likelihood and scale-index building of the conditional model, and the
 factorized prior over z (``EntropyBottleneck``) with its training half --
 likelihoods under uniform noise or rounding, STE quantization, the
-auxiliary quantile loss -- and its host-side CDF tables."""
+auxiliary quantile loss -- and its host-side CDF tables; the
+variable-rate prior (``EntropyBottleneckVbr``) quantizes z with a step
+``qs`` and its tables integrate each slot over +-qs/2."""
 
 from __future__ import annotations
 
@@ -145,24 +147,69 @@ class EntropyBottleneck(nn.Module):
                 for k, v in self.named_parameters()}
 
 
+class EntropyBottleneckVbr(EntropyBottleneck):
+    """The factorized prior with a variable quantization step ``qs``
+    (models.py:208): z lives on the grid ``median + k*qs`` and its
+    likelihood integrates the density over +-qs/2.  Without ``qs`` it is
+    the plain bottleneck."""
+
+    def quantize_variable(self, z: torch.Tensor, qs) -> torch.Tensor:
+        """STE round to the qs grid around the medians; z is NCHW."""
+        medians = self.medians()[None, :, None, None]
+        return quantize_ste((z - medians) / qs) * qs + medians
+
+    def forward(self, z: torch.Tensor, training: bool = True,
+                noise: torch.Tensor | None = None,
+                generator: torch.Generator | None = None, qs=None):
+        """As ``EntropyBottleneck.forward``, with the noise (``noise``, the
+        same [C, B*H*W] layout, or drawn from ``generator``) scaled by
+        ``qs`` in training and rounding on the qs grid in evaluation."""
+        if qs is None:
+            return super().forward(z, training, noise, generator)
+        b, c, h, w = z.shape
+        zc = z.permute(1, 0, 2, 3).reshape(c, b * h * w)
+        if training:
+            if noise is None:
+                noise = torch.rand(zc.shape, generator=generator,
+                                   device=zc.device, dtype=zc.dtype) - 0.5
+            v = zc + noise * qs
+        else:
+            medians = self.medians()[:, None]
+            v = torch.round((zc - medians) / qs) * qs + medians
+        half = qs / 2.0
+        lower = self._logits_cumulative(v[:, None, :] - half, False)
+        upper = self._logits_cumulative(v[:, None, :] + half, False)
+        sign = -torch.sign(lower + upper).detach()
+        lk = torch.abs(torch.sigmoid(sign * upper)
+                       - torch.sigmoid(sign * lower))[:, 0, :]
+        lk = lower_bound(lk, LIKELIHOOD_BOUND)
+
+        def nchw(t):
+            return t.reshape(c, b, h, w).permute(1, 0, 2, 3)
+        return nchw(v), nchw(lk)
+
+
 def entropy_bottleneck_tables(eb_params: dict,
-                              filters: Sequence[int] = (3, 3, 3, 3)):
-    """Host-side CDF tables of the factorized prior (models.py:246, qs=1):
-    the monotone MLP evaluated in f32 numpy at integer offsets around each
-    channel's median, then ``build_cdf_tables``.  Pure numpy, so the tables
-    are bit-exact with the JAX package's for the same parameters.
+                              filters: Sequence[int] = (3, 3, 3, 3),
+                              qs: float = 1.0):
+    """Host-side CDF tables of the factorized prior (models.py:246): the
+    monotone MLP evaluated in f32 numpy on the grid ``median + k*qs``, each
+    slot integrating the density over +-qs/2, then ``build_cdf_tables``.
+    Pure numpy with the JAX package's arithmetic, so the tables are
+    bit-exact with its tables for the same parameters and ``qs``.
 
     Returns (quantized_cdf [C, max+2] int32, cdf_length [C], offset [C],
     medians [C] f32)."""
+    qs = float(qs)
     quantiles = np.asarray(eb_params["quantiles"], np.float32)
     medians = quantiles[:, 0, 1]
     minima = np.maximum(
-        np.ceil(medians - quantiles[:, 0, 0]).astype(np.int64), 0)
+        np.ceil((medians - quantiles[:, 0, 0]) / qs).astype(np.int64), 0)
     maxima = np.maximum(
-        np.ceil(quantiles[:, 0, 2] - medians).astype(np.int64), 0)
+        np.ceil((quantiles[:, 0, 2] - medians) / qs).astype(np.int64), 0)
     pmf_lengths = minima + maxima + 1
     max_length = int(pmf_lengths.max())
-    samples = ((np.arange(max_length)[None, :] - minima[:, None])
+    samples = ((np.arange(max_length)[None, :] - minima[:, None]) * qs
                + medians[:, None]).astype(np.float32)[:, None, :]
     n_layers = len(filters) + 1
 
@@ -181,8 +228,8 @@ def entropy_bottleneck_tables(eb_params: dict,
     def sigmoid(v):
         return 0.5 * (1.0 + np.tanh(0.5 * v))
 
-    lower = sigmoid(logits_np(samples - 0.5))[:, 0, :]
-    upper = sigmoid(logits_np(samples + 0.5))[:, 0, :]
+    lower = sigmoid(logits_np(samples - 0.5 * qs))[:, 0, :]
+    upper = sigmoid(logits_np(samples + 0.5 * qs))[:, 0, :]
     pmfs = upper - lower
     rows = np.arange(len(medians))
     tail = lower[rows, 0] + (1.0 - upper[rows, pmf_lengths - 1])

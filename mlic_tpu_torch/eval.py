@@ -1,17 +1,17 @@
 """Evaluation harness: padded full-image coding through real files, metrics
-(port of ``mlic_tpu/eval.py`` for fixed-rate models).
+(port of ``mlic_tpu/eval.py``).
 
 * pad to a multiple of 64 before coding, crop after;
-* ``compress_one_image`` writes header (H, W) + body and reports the file's
-  bpp; ``decompress_one_image`` reads it back;
+* ``compress_one_image`` writes the header (H, W) -- (H, W, level, f32 bits
+  of ``inputscale``) for a variable-rate level -- and the body, and reports
+  the file's bpp; ``decompress_one_image`` reads it back;
 * ``evaluate_codec`` drives both over a set of images, requires the
   decoder's reconstruction to equal the encoder's bit for bit, and averages
-  bpp, PSNR, MS-SSIM and the two wall-clock times.
+  bpp, PSNR, MS-SSIM and the two wall-clock times; ``evaluate_codec_vbr``
+  does so at each gain level.
 
 Images are numpy arrays ``[B,H,W,3]`` (or ``[H,W,3]``), float in [0, 1];
-the codec decides the device, and the metrics are computed there.  The
-variable-rate header (level and ``inputscale``) waits for the VBR models:
-``s is not None`` raises ``NotImplementedError``.
+the codec decides the device, and the metrics are computed there.
 """
 
 from __future__ import annotations
@@ -41,36 +41,49 @@ def crop_to(x, hw):
     return x[:, :hw[0], :hw[1], :]
 
 
-def _no_vbr(s) -> None:
-    if s is not None:
-        raise NotImplementedError(
-            "the port's eval path covers fixed-rate models; a gain level "
-            "needs the VBR variants")
-
-
 def compress_one_image(codec: Codec, x: np.ndarray, path: str,
-                       s: Optional[int] = None) -> dict:
+                       s: Optional[int] = None,
+                       inputscale: float = 0.0) -> dict:
     """Pad, compress, write the container file; returns bpp, the encode
-    time and the cropped encode-side reconstruction.  Per image (B = 1)."""
-    _no_vbr(s)
+    time and the cropped encode-side reconstruction.  Per image (B = 1).
+    With a level ``s`` the header carries it and ``inputscale``'s f32 bits,
+    so the decoder codes at the encoder's gain; without one the codec codes
+    at its default level and ``inputscale`` must stay 0."""
     padded, (h, w) = pad_to_multiple(np.asarray(x))
     if padded.shape[0] != 1:
         raise ValueError("compress_one_image is per-image (B=1); "
                          "loop over the batch for batched coding")
-    out = codec.compress(padded)
+    if s is None:
+        if inputscale:
+            raise ValueError("inputscale needs a level s: only a VBR "
+                             "header records it")
+        out = codec.compress(padded)
+    else:
+        out = codec.compress(padded, s=s, inputscale=inputscale)
     with open(path, "wb") as f:
-        bitstream.write_uints(f, (h, w))
+        if s is None:
+            bitstream.write_uints(f, (h, w))
+        else:
+            bits = int(np.float32(inputscale).view(np.uint32))
+            bitstream.write_uints(f, (h, w, s, bits))
         bitstream.write_body(f, out["shape"], out["strings"])
     n_bytes = os.path.getsize(path)
     return {"bpp": 8.0 * n_bytes / (h * w), "enc_time": out["cost_time"],
             "x_hat_enc": crop_to(out["x_hat"].cpu().numpy(), (h, w))}
 
 
-def decompress_one_image(codec: Codec, path: str) -> dict:
+def decompress_one_image(codec: Codec, path: str, vbr: bool = False) -> dict:
+    """Read a container file (with the VBR header where ``vbr``) and
+    decode it at the level it records."""
     with open(path, "rb") as f:
-        h, w = bitstream.read_uints(f, 2)
+        if vbr:
+            h, w, s, bits = bitstream.read_uints(f, 4)
+            inputscale = float(np.uint32(bits).view(np.float32))
+        else:
+            h, w = bitstream.read_uints(f, 2)
+            s, inputscale = 0, 0.0
         strings, shape = bitstream.read_body(f)
-    out = codec.decompress(strings, shape)
+    out = codec.decompress(strings, shape, s=s, inputscale=inputscale)
     return {"x_hat": crop_to(out["x_hat"].cpu().numpy(), (h, w)),
             "dec_time": out["cost_time"]}
 
@@ -105,14 +118,35 @@ def compress_bpp_constrained(codec: Codec, x: np.ndarray, path: str,
     return out
 
 
+def evaluate_codec_vbr(codec: Codec, images, save_dir: str,
+                       levels: Optional[Iterable[int]] = None,
+                       log=print) -> dict:
+    """``evaluate_codec`` at each gain level (all of the model's by
+    default), each into ``save_dir/level_<s>``; returns {level: means}
+    (eval.py:108)."""
+    images = list(images)
+    if levels is None:
+        levels = range(len(codec.model.cfg.lmbda))
+    results = {}
+    for s in levels:
+        results[int(s)] = evaluate_codec(
+            codec, images, os.path.join(save_dir, f"level_{s}"), s=int(s),
+            log=log)
+        log(f"level {s}: " + " ".join(
+            f"{k}={v:.4f}" for k, v in results[int(s)].items()
+            if isinstance(v, float)))
+    return results
+
+
 def evaluate_codec(codec: Codec, images: Iterable[np.ndarray], save_dir: str,
                    s: Optional[int] = None, log=print,
-                   extra_metrics: Optional[dict] = None) -> dict:
-    """Round-trip every image through a real file; average the metrics.
+                   extra_metrics: Optional[dict] = None,
+                   inputscale: float = 0.0) -> dict:
+    """Round-trip every image through a real file (with the VBR header at a
+    level ``s``); average the metrics.
 
     ``extra_metrics``: optional {name: fn(x_hat, img) -> float} on numpy
     arrays."""
-    _no_vbr(s)
     os.makedirs(save_dir, exist_ok=True)
     sums = {"bpp": 0.0, "psnr": 0.0, "ms_ssim": 0.0, "enc_time": 0.0,
             "dec_time": 0.0}
@@ -123,8 +157,8 @@ def evaluate_codec(codec: Codec, images: Iterable[np.ndarray], save_dir: str,
         if img.ndim == 3:
             img = img[None]
         path = os.path.join(save_dir, f"img_{i:03d}.bin")
-        enc = compress_one_image(codec, img, path)
-        dec = decompress_one_image(codec, path)
+        enc = compress_one_image(codec, img, path, s, inputscale)
+        dec = decompress_one_image(codec, path, vbr=s is not None)
         if not np.array_equal(dec["x_hat"], enc["x_hat_enc"]):
             raise AssertionError(
                 f"decode mismatch on image {i} (non-deterministic codec)")

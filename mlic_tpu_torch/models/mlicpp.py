@@ -16,6 +16,11 @@ directions call the same torch functions on the same shapes and layouts:
 that is what makes the entropy parameters, and hence the round trip,
 bit-exact.
 
+The coding halves take the variable-rate models' quantization scale
+(``scale``: symbols are ``round((y - mu) * scale)``, rows are looked up at
+``sigma * scale``) and hyper-latent step (``z_qs``); the fixed rate's 1.0
+leaves the arithmetic as it is (``models/vbr.py`` supplies other values).
+
 Methods take and return NHWC arrays, as the JAX package's do; the modules
 inside are NCHW.  Module names follow the flax tree (``local_0``,
 ``chctx_1``, ...), so ``weights.from_flax`` maps parameters by path.
@@ -91,13 +96,23 @@ def nhwc_flat(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 2, 3, 1).reshape(t.shape[0], -1)
 
 
+def _is_one(v) -> bool:
+    """The fixed rate's python 1.0, whose multiplies and divides (exact)
+    are skipped with their launches."""
+    return isinstance(v, (int, float)) and v == 1
+
+
+def times(t, scale):
+    return t if _is_one(scale) else t * scale
+
+
 class MLICPlusPlus(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.vbr or cfg.small_decoder or cfg.old_synthesis:
+        if cfg.small_decoder or cfg.old_synthesis:
             raise NotImplementedError(
-                f"{cfg.name}: the port covers fixed-rate, full-decoder "
-                "configurations only")
+                f"{cfg.name}: the port covers full-decoder configurations "
+                "only")
         self.cfg = cfg
         N, M, S, C = cfg.N, cfg.M, cfg.slice_num, cfg.slice_ch
         dw = cfg.depthwise
@@ -106,7 +121,7 @@ class MLICPlusPlus(nn.Module):
         self.h_a = HyperAnalysis(M, N, dw, tdt)
         self.g_s = SynthesisTransform(N, M, dw, tdt, gdt)
         self.h_s = HyperSynthesis(M, N, dw)     # f32: feeds the entropy path
-        self.entropy_bottleneck = EntropyBottleneck(N)
+        self.entropy_bottleneck = self._make_entropy_bottleneck(N)
         for i in range(S):
             self.add_module(f"local_{i}",
                             LocalContext(C, window_size=cfg.context_window))
@@ -127,6 +142,9 @@ class MLICPlusPlus(nn.Module):
         self.register_buffer(
             "scale_table", torch.tensor(get_scale_table(), dtype=torch.float32),
             persistent=False)
+
+    def _make_entropy_bottleneck(self, channels: int) -> nn.Module:
+        return EntropyBottleneck(channels)
 
     def _sub(self, prefix: str, i: int) -> nn.Module:
         return getattr(self, f"{prefix}_{i}")
@@ -194,12 +212,26 @@ class MLICPlusPlus(nn.Module):
         bottleneck's ``[N, B*h/4*w/4]`` layout, else drawn from
         ``generator``) or rounding for z; y is STE-rounded around its
         means either way."""
+        return self._forward(x, training, noise, generator)
+
+    def _forward(self, x, training, noise, generator, scale=1.0, z_qs=None,
+                 make_round=None):
+        """The training forward at quantization ``scale``: y's likelihoods
+        on the scaled triple (y, sigma, mu) * scale; z through the
+        bottleneck's qs grid where ``z_qs`` is given, else STE-rounded;
+        ``make_round(scales)`` gives a phase's rounding ``(v, means) ->
+        v_hat``, STE around the means where it is None."""
         C = self.cfg.slice_ch
         y = self.g_a(to_nchw(x.float()))
         z = self.h_a(y)
-        _, z_likelihoods = self.entropy_bottleneck(z, training, noise,
-                                                   generator)
-        hyper_params = self.h_s(self.entropy_bottleneck.ste_quantize(z))
+        if z_qs is None:
+            _, z_likelihoods = self.entropy_bottleneck(z, training, noise,
+                                                       generator)
+            z_hat = self.entropy_bottleneck.ste_quantize(z)
+        else:
+            z_hat, z_likelihoods = self.entropy_bottleneck(
+                z, training, noise, generator, qs=z_qs)
+        hyper_params = self.h_s(z_hat)
         y_lks, anchor = [], {}
 
         def phase(idx, squeeze, unsqueeze, scales, means):
@@ -211,9 +243,12 @@ class MLICPlusPlus(nn.Module):
                 anchor["scales"], anchor["means"] = scales, means
             else:
                 y_lks.append(gaussian_likelihood(
-                    y_slice, anchor["scales"] + scales,
-                    anchor["means"] + means))
-            return quantize_ste(mask(y_slice) - means) + means
+                    times(y_slice, scale),
+                    times(anchor["scales"] + scales, scale),
+                    times(anchor["means"] + means, scale)))
+            if make_round is None:
+                return quantize_ste(mask(y_slice) - means) + means
+            return make_round(scales)(mask(y_slice), means)
 
         y_hat = self._slices(hyper_params, phase)
         return {"x_hat": to_nhwc(self.g_s(y_hat)),
@@ -224,58 +259,77 @@ class MLICPlusPlus(nn.Module):
         return self.entropy_bottleneck.aux_loss()
 
     # ------------------------- analysis only ---------------------------
-    def analyze(self, x):
+    def analyze(self, x, z_qs=1.0):
         """x: [B,H,W,3] uint8 or float in [0,1] -> (y [B,h,w,M] f32,
-        z_symbols [B,h/4,w/4,N] int32), NHWC (mlicpp.py:228)."""
+        z_symbols [B,h/4,w/4,N] int32), NHWC (mlicpp.py:228); z is rounded
+        on the grid of step ``z_qs`` around the medians."""
         if x.dtype == torch.uint8:
             x = x.float() / 255.0
         y = self.g_a(to_nchw(x.float()))
         z = self.h_a(y)
         medians = self.entropy_bottleneck.medians()[None, :, None, None]
-        z_symbols = torch.round(z - medians).to(torch.int32)
+        v = z - medians
+        z_symbols = torch.round(v if _is_one(z_qs) else v / z_qs).to(
+            torch.int32)
         return to_nhwc(y), to_nhwc(z_symbols)
 
-    def _z_hat(self, z_symbols_nchw):
+    def _z_hat(self, z_symbols_nchw, z_qs=1.0):
         medians = self.entropy_bottleneck.medians()[None, :, None, None]
-        return z_symbols_nchw.float() + medians
+        return times(z_symbols_nchw.float(), z_qs) + medians
 
-    @staticmethod
-    def _phase_recon(symbols, mu_sq):
-        return symbols.float() + mu_sq
+    def _phase_recon(self, symbols, mu_sq, sc_sq, scale):
+        """A squeezed phase's values from its integer symbols (mlicpp.py:
+        262): ``sym / scale + mu``.  The VBR model adds QuantABCD's offset
+        here; encode and decode call it on identical inputs."""
+        del sc_sq
+        return times(symbols.float(), 1.0 / scale) + mu_sq
+
+    def gain_scale(self, s=0, inputscale=0.0):
+        """Coding-time quantization scale: 1.0 at the fixed rate."""
+        return 1.0
+
+    def z_step(self, s=0, inputscale=0.0):
+        """Hyper-latent quantization step: 1.0 unless a VBR model has a
+        variable-rate bottleneck."""
+        return 1.0
 
     def synthesize(self, y_hat):
         """g_s on an NHWC latent -> NHWC image."""
         return to_nhwc(self.g_s(to_nchw(y_hat)))
 
     # ------------------------- real coding -----------------------------
-    def codec_encode_pass(self, y, z_symbols):
+    def codec_encode_pass(self, y, z_symbols, scale=1.0, z_qs=1.0):
         """Encode pass (mlicpp.py:607): y [B,h,w,M] and z_symbols NHWC ->
         (y_hat NHWC, symbols int32 [B, total], indexes int32 [B, total]),
         the per-phase arrays raveled NHWC and concatenated in coding
-        order."""
+        order; symbols ``round((y - mu) * scale)``, indexes at ``sigma *
+        scale``, z reconstructed at step ``z_qs``."""
         C = self.cfg.slice_ch
         y = to_nchw(y)
-        hyper_params = self.h_s(self._z_hat(to_nchw(z_symbols)))
+        hyper_params = self.h_s(self._z_hat(to_nchw(z_symbols), z_qs))
         syms, idxs = [], []
 
         def phase(idx, squeeze, unsqueeze, scales, means):
             sc_sq, mu_sq = squeeze(scales), squeeze(means)
-            indexes = build_indexes(sc_sq, self.scale_table)
-            cand = torch.round(squeeze(y[:, idx * C:(idx + 1) * C]) - mu_sq
-                               ).to(torch.int32)
+            indexes = build_indexes(times(sc_sq, scale), self.scale_table)
+            cand = torch.round(times(
+                squeeze(y[:, idx * C:(idx + 1) * C]) - mu_sq, scale)
+            ).to(torch.int32)
             syms.append(nhwc_flat(cand))
             idxs.append(nhwc_flat(indexes))
-            return unsqueeze(self._phase_recon(cand, mu_sq))
+            return unsqueeze(self._phase_recon(cand, mu_sq, sc_sq, scale))
 
         y_hat = self._slices(hyper_params, phase)
         return to_nhwc(y_hat), torch.cat(syms, 1), torch.cat(idxs, 1)
 
     def codec_device_pass_v4(self, zh: int, zw: int, words, img_begin, tables,
                              n_lanes: int, n_steps: int, z_steps_row: int,
-                             z_rows_base: int, esc_values, esc_begin):
+                             z_rows_base: int, esc_values, esc_begin,
+                             scale=1.0, z_qs=1.0):
         """Format-v4 decode (mlicpp.py:496): z from the stream's leading
         phases by integer-row bisection over ``tables['cdf_rows']`` rows
-        >= ``z_rows_base``, then the y phases parametrically.
+        >= ``z_rows_base`` (the rows of step ``z_qs``), then the y phases
+        parametrically at quantization ``scale``.
 
         words: int16 (uint16 bits), all images' blocks; img_begin int32 [B];
         esc_values/esc_begin: the escape side channel.  Returns y_hat
@@ -295,15 +349,15 @@ class MLICPlusPlus(nn.Module):
         steps = ordered.shape[0]
         z_sym = (z_sym.reshape(steps, b, n_lanes).permute(1, 0, 2)
                  .reshape(b, -1)[:, :z_n].reshape(b, zh, zw, N))
-        return to_nhwc(self._device_pass_from_z(to_nchw(z_sym), carry,
-                                                decode, tables, n_lanes))
+        return to_nhwc(self._device_pass_from_z(
+            to_nchw(z_sym), carry, decode, tables, n_lanes, scale, z_qs))
 
     def _device_pass_from_z(self, z_symbols, carry, decode, tables,
-                            n_lanes: int):
+                            n_lanes: int, scale=1.0, z_qs=1.0):
         """The y half of the device decode (mlicpp.py:537), NCHW; returns
         y_hat."""
         pad_row = tables["row_params"].shape[0] - 1
-        hyper_params = self.h_s(self._z_hat(z_symbols))
+        hyper_params = self.h_s(self._z_hat(z_symbols, z_qs))
         state = {"carry": carry}
 
         def phase(idx, squeeze, unsqueeze, scales, means):
@@ -311,10 +365,12 @@ class MLICPlusPlus(nn.Module):
             b, c, h, w2 = mu_sq.shape
             n_img = c * h * w2
             ordered = phase_order(nhwc_flat(build_indexes(
-                sc_sq, self.scale_table)), n_lanes, pad_row).contiguous()
+                times(sc_sq, scale), self.scale_table)), n_lanes,
+                pad_row).contiguous()
             state["carry"], sym = decode(state["carry"], ordered, tables)
             sym = (sym.reshape(-1, b, n_lanes).permute(1, 0, 2)
                    .reshape(b, -1)[:, :n_img].reshape(b, h, w2, c))
-            return unsqueeze(self._phase_recon(to_nchw(sym), mu_sq))
+            return unsqueeze(self._phase_recon(to_nchw(sym), mu_sq, sc_sq,
+                                               scale))
 
         return self._slices(hyper_params, phase)

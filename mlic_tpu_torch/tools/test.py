@@ -1,7 +1,8 @@
 """Offline evaluation CLI (port of ``tools/test.py``).
 
     python -m mlic_tpu_torch.tools.test --dataset DIR [--model MLICPP_S]
-        [--checkpoint FILE] [--save-dir DIR] [--transform-dtype NAME] [--cpu]
+        [--checkpoint FILE] [--save-dir DIR] [--transform-dtype NAME]
+        [--level S] [--cpu]
 
 Compresses every image of a folder to a real bitstream file, decompresses it
 and reports bpp, PSNR, MS-SSIM and the encode and decode wall-clock.  Runs
@@ -9,7 +10,9 @@ on the CUDA card unless ``--cpu`` is given.  ``--checkpoint`` is an orbax
 directory of the JAX package (e.g. ``ckpts/bench_default``, the trained
 MLICPP_S) or a torch file of the port (``weights.load_checkpoint``);
 without it the weights are seeded random ones, which exercise the codec
-but compress nothing.
+but compress nothing.  ``--level`` codes a VBR model (e.g. MLICPP_S_VBR)
+at that gain level and writes the VBR header; without it a VBR model codes
+at level 0, as the reference CLI does.
 ``MLIC_FUSED_BLOCKS=1`` in the environment selects the fused block-tail
 kernel in g_a and g_s.  The codec picks its rANS lane count from the first
 image's size (``Codec(n_lanes="auto")``), as the reference CLI does.
@@ -38,6 +41,7 @@ def main(argv=None) -> dict:
     p.add_argument("--save-dir", default="./runs/eval")
     p.add_argument("--transform-dtype", default=None,
                    choices=["float32", "bfloat16", "bfloat16_mixed"])
+    p.add_argument("--level", type=int, default=None, help="VBR gain level")
     p.add_argument("--cpu", action="store_true")
     args = p.parse_args(argv)
 
@@ -53,7 +57,7 @@ def main(argv=None) -> dict:
     codec = Codec(model, device="cpu" if args.cpu else None)
     codec.update()
     images = (load_image(f).astype(np.float32) / 255.0 for f in files)
-    results = evaluate_codec(codec, images, args.save_dir)
+    results = evaluate_codec(codec, images, args.save_dir, s=args.level)
     print("avg:", {k: round(v, 5) if isinstance(v, float) else v
                    for k, v in results.items()})
     return results

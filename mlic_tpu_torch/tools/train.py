@@ -5,7 +5,12 @@
         --lambda 0.0483 --metrics mse --batch-size 8 --steps 100000
     python -m mlic_tpu_torch.tools.train --cpu --model MLICPP_TINY \\
         --synthetic --steps 3 --batch-size 2 --patch-size 64
+    python -m mlic_tpu_torch.tools.train --model MLICPP_S_VBR --vbr \\
+        --pretrained ckpts/bench_default --synthetic
 
+``--vbr`` trains a VBR model at all its gain levels at once (MGDA,
+``train/vbr.py``; ``--vbr-gradnorm loss`` scales each level by 1/loss) and
+``--train-gain`` lets gradients reach its ``Gain`` vector.
 Runs on the CUDA card unless ``--cpu`` is given.  ``--synthetic`` (or no
 ``--dataset``) trains on smooth waves or a dead-leaves pool.
 ``--pretrained`` warm-starts from an orbax directory of the JAX package
@@ -22,9 +27,9 @@ import time
 import numpy as np
 import torch
 
-_WAITING = ("Not ported yet (they wait for their modules): --vbr and "
-            "--train-gain (the VBR models), --augment (data/autoaugment), "
-            "--patch-milestones, --test-dataset and --save-recon.")
+_WAITING = ("Not ported yet (they wait for their modules): --augment "
+            "(data/autoaugment), --patch-milestones, --test-dataset and "
+            "--save-recon.")
 
 
 def parse_args(argv=None):
@@ -72,6 +77,13 @@ def parse_args(argv=None):
     p.add_argument("--val-images", type=int, default=4)
     p.add_argument("--dual", action="store_true",
                    help="two-pass recompression training")
+    p.add_argument("--vbr", action="store_true",
+                   help="VBR multi-rate (MGDA) training of a VBR model")
+    p.add_argument("--train-gain", action="store_true",
+                   help="let gradients flow into the Gain vector (the "
+                        "reference detaches it; ModelConfig.train_gain)")
+    p.add_argument("--vbr-gradnorm", default="none", choices=["none", "loss"],
+                   help="MGDA-UB per-level gradient normalization (1/loss)")
     p.add_argument("--transform-dtype", default=None,
                    choices=["float32", "bfloat16", "bfloat16_mixed"],
                    help="compute dtype of g_a/h_a/g_s (the entropy path "
@@ -100,6 +112,7 @@ def main(argv=None) -> dict:
         eval_step,
         train_step,
     )
+    from mlic_tpu_torch.train.vbr import make_vbr_train_step
     from mlic_tpu_torch.utils.checkpoint import CheckpointManager, load_matching
     from mlic_tpu_torch.utils.logger import MetricsWriter
     from mlic_tpu_torch.weights import init_params, load_checkpoint
@@ -109,7 +122,12 @@ def main(argv=None) -> dict:
                          "forward-only and cannot train; unset it")
     if args.transform_dtype is None:
         args.transform_dtype = "float32" if args.cpu else "bfloat16_mixed"
-    model = get_model(args.model, args.transform_dtype)
+    if args.vbr and args.dual:
+        raise SystemExit("--vbr and --dual are separate training steps")
+    model = get_model(args.model, args.transform_dtype,
+                      **({"train_gain": True} if args.train_gain else {}))
+    if args.vbr and not model.cfg.vbr:
+        raise SystemExit(f"--vbr needs a VBR model; {args.model} is not one")
     model.load_state_dict(init_params(
         model, torch.Generator().manual_seed(args.seed)))
     if args.pretrained:
@@ -126,7 +144,10 @@ def main(argv=None) -> dict:
         warmup_steps=args.warmup_steps, seed=args.seed)
     state = create_train_state(model, cfg, "cpu" if args.cpu else None,
                                args.freeze)
-    step_fn = dual_train_step if args.dual else train_step
+    if args.vbr:
+        step_fn = make_vbr_train_step(args.vbr_gradnorm)
+    else:
+        step_fn = dual_train_step if args.dual else train_step
 
     work_dir = os.path.join(args.ckpt_dir, args.exp_name)
     ckpt = CheckpointManager(work_dir)
@@ -191,7 +212,7 @@ def main(argv=None) -> dict:
         metrics = step_fn(state, batch, cfg)
         step = state.step
         if step % args.log_freq == 0 or step == args.steps:
-            last = {k: float(v) for k, v in metrics.items()}
+            last = _scalars(metrics)
             dt = (time.perf_counter() - t0) / args.log_freq
             print(f"step {step} | {dt * 1e3:.0f} ms/it | " + " ".join(
                 f"{k}={v:.4f}" for k, v in sorted(last.items())), flush=True)
@@ -205,6 +226,18 @@ def main(argv=None) -> dict:
             print(f"saved checkpoint_{step}", flush=True)
     writer.close()
     return {"step": state.step, **last}
+
+
+def _scalars(metrics: dict) -> dict:
+    """Metrics as floats; a per-level vector ``v`` becomes ``v_0``,
+    ``v_1``, ..."""
+    out = {}
+    for k, v in metrics.items():
+        if v.numel() == 1:
+            out[k] = float(v)
+        else:
+            out.update({f"{k}_{i}": float(e) for i, e in enumerate(v)})
+    return out
 
 
 if __name__ == "__main__":

@@ -88,10 +88,16 @@ def _update(state: TrainState, cfg: TrainConfig, loss: torch.Tensor):
     gradient is cleared first, a frozen parameter's too: it is in neither
     optimizer but counts in the clipping norm, which must see this step's
     gradients only."""
-    model = state.model
-    model.zero_grad(set_to_none=True)
+    state.model.zero_grad(set_to_none=True)
     loss.backward()
-    main = main_parameters(model)
+    return apply_gradients(state, cfg)
+
+
+def apply_gradients(state: TrainState, cfg: TrainConfig) -> torch.Tensor:
+    """Clip the main gradients the parameters hold by their global norm,
+    step both optimizers at the schedule's rate and count the update;
+    returns the norm before clipping."""
+    main = main_parameters(state.model)
     if cfg.clip_max_norm:
         norm = clip_by_global_norm_(main, cfg.clip_max_norm)
     else:
@@ -142,12 +148,18 @@ def dual_train_step(state: TrainState, batch, cfg: TrainConfig) -> dict:
 
 
 @torch.no_grad()
-def eval_step(model: MLICPlusPlus, batch, cfg: TrainConfig) -> dict:
+def eval_step(model: MLICPlusPlus, batch, cfg: TrainConfig,
+              s: int | None = None) -> dict:
     """Eval forward (rounded z) of a batch: RD metrics, PSNR and x_hat
-    (trainer.py:170-182)."""
+    (trainer.py:170-182).  A VBR model evaluates at gain level ``s``
+    with that level's lambda (without one, its forward's default level
+    and ``cfg.lmbda``)."""
     x = _to_batch(batch, next(model.parameters()).device)
-    out = model(x, False)
-    rd = rate_distortion_loss(out, x, cfg.lmbda, cfg.metric)
+    if s is None:
+        out, lmbda = model(x, False), cfg.lmbda
+    else:
+        out, lmbda = model(x, False, s=s), model.cfg.lmbda[s]
+    rd = rate_distortion_loss(out, x, lmbda, cfg.metric)
     mse = torch.mean(torch.square(out["x_hat"] - x))
     rd["psnr"] = 10.0 * torch.log10(1.0 / torch.clamp(mse, min=1e-12))
     rd["x_hat"] = out["x_hat"]

@@ -8,13 +8,16 @@ flax names, so only the leaf names and layouts change --
 * conv kernels HWIO -> OIHW (depthwise [k,k,1,C] -> [C,1,k,k]),
 * Dense kernels (in, out) -> (out, in); LocalContext's ``fusion`` stays a
   Dense over the flattened window in (i*w + j)*C + c order,
-* LayerNorm ``scale`` -> ``weight``; everything else keeps name and shape.
+* LayerNorm ``scale`` -> ``weight``; everything else keeps name and shape
+  (the VBR model's ``Gain``; its QuantABCD and zqstep MLPs are Dense
+  layers).
 
 ``to_flax`` is its inverse (the flax layout of a state_dict, to compare
 parameters and gradients leaf by leaf).  ``load_checkpoint`` reads an orbax
 directory of the JAX package or a torch file of the port.
 ``init_params`` draws random weights from the flax initializer families
-(their distributions, not their bits) with a ``torch.Generator``.
+(their distributions, not their bits) with a ``torch.Generator``; the VBR
+model's ``Gain`` starts at ``cfg.gain_init`` exactly, as in flax.
 """
 
 from __future__ import annotations
@@ -80,10 +83,14 @@ def flax_keystr(name: str, ndim: int) -> str:
 
 def to_flax(state_dict: dict) -> dict:
     """The inverse of ``from_flax``: state_dict -> nested dict of f32 numpy
-    arrays in the flax layout (OIHW -> HWIO, Dense (out, in) -> (in, out))."""
+    arrays in the flax layout (OIHW -> HWIO, Dense (out, in) -> (in, out)).
+    The arrays are copies: ``.numpy()`` of a CPU tensor shares its memory,
+    and JAX may take a numpy array without copying, so an in-place update
+    of the model would otherwise change the tree, even under a JAX program
+    still running on it."""
     tree = {}
     for name, t in state_dict.items():
-        a = t.detach().float().cpu().numpy()
+        a = t.detach().float().cpu().numpy().copy()
         path = flax_path(name, a.ndim)
         if path[-1] == "kernel":
             a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
@@ -138,6 +145,8 @@ def init_params(model: MLICPlusPlus, generator: torch.Generator) -> dict:
                 v = v * 0.02
             elif isinstance(mod, EntropyBottleneck):
                 v = _eb_init(mod, pname, shape, generator)
+            elif pname == "Gain":
+                v = torch.tensor(model.cfg.gain_init, dtype=torch.float32)
             elif pname == "weight":
                 v = _lecun_normal(shape, generator)
             else:

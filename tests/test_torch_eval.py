@@ -34,6 +34,20 @@ from mlic_tpu_torch.models.registry import get_model
 from mlic_tpu_torch.utils import bitstream as tbits
 from mlic_tpu_torch.weights import from_flax, init_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch's CPU operators on one thread while this module runs: the
+    suite runs under six pytest-xdist workers on the machine's cores, and
+    an operator that forks a thread per core then waits at its barrier for
+    threads the other workers hold, tens of times slower than one thread.
+    The numbers checked are the same; the count is restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SWITCH = "MLIC_FUSED_BLOCKS"
 N_LANES = 32
 
@@ -169,11 +183,56 @@ def test_one_image_round_trip_is_bit_exact(tmp_path, monkeypatch, codec):
 
 
 def test_vbr_levels_are_not_ported(tmp_path, codec):
-    x = np.zeros((1, 64, 64, 3), np.float32)
-    with pytest.raises(NotImplementedError):
-        tev.compress_one_image(codec, x, str(tmp_path / "a.bin"), s=1)
-    with pytest.raises(NotImplementedError):
-        tev.evaluate_codec(codec, [x], str(tmp_path), s=0)
+    """Since the VBR models were ported, a level is taken: a fixed-rate
+    codec ignores it but writes the VBR header (H, W, level, inputscale's
+    f32 bits), which ``decompress_one_image(vbr=True)`` reads; an
+    ``inputscale`` without a level, which no header could record, is
+    refused."""
+    x = np.random.default_rng(12).random((1, 64, 64, 3), dtype=np.float32)
+    path = str(tmp_path / "a.bin")
+    plain = tev.compress_one_image(codec, x, str(tmp_path / "plain.bin"))
+    enc = tev.compress_one_image(codec, x, path, s=1, inputscale=0.25)
+    with open(path, "rb") as f:
+        h, w, s, bits = jbits.read_uints(f, 4)
+    assert (h, w, s) == (64, 64, 1)
+    assert np.uint32(bits).view(np.float32) == np.float32(0.25)
+    assert (tmp_path / "a.bin").stat().st_size == \
+        (tmp_path / "plain.bin").stat().st_size + 8
+    dec = tev.decompress_one_image(codec, path, vbr=True)
+    np.testing.assert_array_equal(dec["x_hat"], enc["x_hat_enc"])
+    np.testing.assert_array_equal(plain["x_hat_enc"], enc["x_hat_enc"])
+    with pytest.raises(ValueError, match="inputscale"):
+        tev.compress_one_image(codec, x, path, inputscale=0.5)
+    res = tev.evaluate_codec(codec, [x[0]], str(tmp_path / "ev"), s=0)
+    assert res["n_images"] == 1 and res["bpp"] > 0
+
+
+@pytest.fixture(scope="module")
+def vbr_codec():
+    model = get_model("MLICPP_TINY_VBR")
+    model.load_state_dict(init_params(model,
+                                      torch.Generator().manual_seed(0)))
+    return Codec(model, n_lanes=N_LANES, device="cpu")
+
+
+def test_vbr_file_round_trip(tmp_path, vbr_codec):
+    """A VBR model through files at every level and at an ``inputscale``:
+    each decodes from its header bit-exactly, the rate rises with the
+    level, and ``evaluate_codec_vbr`` writes one folder a level."""
+    x = np.random.default_rng(13).random((1, 70, 90, 3), dtype=np.float32)
+    bpps = []
+    for s, isc in ((0, 0.0), (1, 0.0), (2, 0.0), (1, 0.7)):
+        path = str(tmp_path / f"l{s}_{isc}.bin")
+        enc = tev.compress_one_image(vbr_codec, x, path, s=s, inputscale=isc)
+        dec = tev.decompress_one_image(vbr_codec, path, vbr=True)
+        np.testing.assert_array_equal(dec["x_hat"], enc["x_hat_enc"])
+        bpps.append(enc["bpp"])
+    assert bpps[0] < bpps[1] < bpps[2]
+    res = tev.evaluate_codec_vbr(vbr_codec, [x[0]], str(tmp_path / "ev"),
+                                 levels=[0, 2], log=lambda line: None)
+    assert sorted(res) == [0, 2] and res[0]["bpp"] < res[2]["bpp"]
+    assert sorted(p.name for p in (tmp_path / "ev").iterdir()) == \
+        ["level_0", "level_2"]
 
 
 class _RateOfDetail:
@@ -236,6 +295,54 @@ def test_cli_on_a_folder_of_pngs(tmp_path, monkeypatch, capsys,
     assert len(list((tmp_path / "out").iterdir())) == 2
     with pytest.raises(FileNotFoundError):
         cli.main(["--cpu", "--dataset", str(tmp_path / "out")])
+
+
+def test_cli_level_codes_a_vbr_model(tmp_path, capsys):
+    """``tools/test.py --level`` on a VBR model writes the VBR header at
+    that level; without it the model codes at level 0, as the reference
+    CLI does."""
+    Image = pytest.importorskip("PIL.Image")
+    from mlic_tpu_torch.tools import test as cli
+
+    data = tmp_path / "data"
+    data.mkdir()
+    Image.fromarray(tfolder.dead_leaves_pool(1, 64, seed=14, n_disks=20,
+                                             cache_dir="")[0]).save(
+        data / "a.png")
+    argv = ["--cpu", "--model", "MLICPP_TINY_VBR", "--dataset", str(data)]
+    res = {}
+    for level in (None, 0, 2):
+        out = tmp_path / f"out{level}"
+        extra = [] if level is None else ["--level", str(level)]
+        res[level] = cli.main(argv + ["--save-dir", str(out)] + extra)
+        with open(out / "img_000.bin", "rb") as f:
+            head = jbits.read_uints(f, 4)
+        if level is not None:
+            assert head[:3] == (64, 64, level)
+    assert "avg:" in capsys.readouterr().out
+    assert res[None]["psnr"] == res[0]["psnr"]
+    assert res[0]["bpp"] < res[2]["bpp"]
+
+
+def test_train_cli_vbr_smoke(tmp_path, capsys):
+    """``tools/train.py --vbr`` on MLICPP_TINY_VBR: two MGDA steps on the
+    CPU print the per-level metrics and write a checkpoint; ``--vbr`` on a
+    fixed-rate model is refused."""
+    from mlic_tpu_torch.tools import train as tcli
+    args = ["--cpu", "--model", "MLICPP_TINY_VBR", "--vbr", "--synthetic",
+            "--steps", "2", "--batch-size", "1", "--patch-size", "64",
+            "--log-freq", "1", "--vbr-gradnorm", "loss", "--train-gain",
+            "--ckpt-dir", str(tmp_path)]
+    out = tcli.main(args)
+    assert out["step"] == 2 and np.isfinite(out["loss"])
+    assert {"alpha_0", "alpha_2", "loss_per_level_1", "bpp_per_level_2"} \
+        <= set(out)
+    assert abs(sum(out[f"alpha_{i}"] for i in range(3)) - 1.0) < 1e-5
+    assert (tmp_path / "mlic_tpu_torch" / "checkpoint_2.pt").is_file()
+    assert "alpha_1=" in capsys.readouterr().out
+    with pytest.raises(SystemExit, match="VBR model"):
+        tcli.main(["--cpu", "--model", "MLICPP_TINY", "--vbr", "--steps",
+                   "1", "--ckpt-dir", str(tmp_path / "b")])
 
 
 def test_cli_defaults_to_cuda(tmp_path):

@@ -28,6 +28,20 @@ from mlic_tpu_torch.models.registry import get_model
 from mlic_tpu_torch.utils import bitstream
 from mlic_tpu_torch.weights import from_flax, init_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch's CPU operators on one thread while this module runs: the
+    suite runs under six pytest-xdist workers on the machine's cores, and
+    an operator that forks a thread per core then waits at its barrier for
+    threads the other workers hold, tens of times slower than one thread.
+    The numbers checked are the same; the count is restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SIZES = (16, 48, 64, 100, 128, 192, 256, 500, 512, 768, 1024, 1080, 2048)
 
 

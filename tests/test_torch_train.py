@@ -44,6 +44,20 @@ from mlic_tpu_torch.train.trainer import (
 from mlic_tpu_torch.utils.checkpoint import CheckpointManager
 from mlic_tpu_torch.weights import init_params, to_flax
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch's CPU operators on one thread while this module runs: the
+    suite runs under six pytest-xdist workers on the machine's cores, and
+    an operator that forks a thread per core then waits at its barrier for
+    threads the other workers hold, tens of times slower than one thread.
+    The numbers checked are the same; the count is restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SHAPE = (2, 64, 64, 3)
 LMBDA = 0.0483
 # The whole-model programs compile at XLA's lowest backend optimization
