@@ -17,8 +17,10 @@
    of 8 dead-leaves frames of 768x512 through ``Codec.compress`` and
    ``Codec.decompress``, asserting that the decoder's y_hat and x_hat are
    bit-identical to the encoder's, that K1-K4, K6 and K7 were launched on
-   that path (K5 is off there), and that K1 and K2 ran only in
-   ``update`` (0 launches per batch); bpp and escape share per request;
+   that path, and that each request launched what the configuration gives
+   (``request_launches``: K7, K3 and K6 once, K4 1 + 2 * slice_num times,
+   K1 and K2 none -- they run only in ``update`` -- and K5 none, its
+   switch off); bpp and escape share per request;
 5. times more requests whole and, alternately, by the stages that
    ``Codec.compress``/``decompress`` record (median, min, max of each),
    and profiles one more compress and decompress (device busy time, idle
@@ -33,8 +35,10 @@
    pad-and-crop path) -- asserting what ``evaluate_codec`` asserts (the
    decoder's x_hat bit-identical to the encoder's, read back from the
    file), finite bpp, PSNR and MS-SSIM beside the escape share and the lane
-   count resolved, 20 launches of K5 per image and launches of every other
-   kernel;
+   count resolved, K5 launched once a fusable tail of g_a and twice one of
+   g_s an image (``k5_per_image``, from the configuration by the JAX
+   package's rule: 20 for MLICPP_S) and launches of every
+   other kernel;
 7. g_a and g_s at the serving size with the fused tail off and on, under
    ``float32`` and ``bfloat16_mixed``: difference and median times;
 8. holds every kernel against its plain PyTorch version on the card:
@@ -54,8 +58,9 @@
    evaluation: in bf16 the kernel's error may be at most twice the plain
    version's); times kernel, plain version and, for the row select,
    ``table[row]``; K5's shared-memory plan must take every width of the
-   configurations, and a width that cannot fit a block must raise, in the
-   wrapper and in the C entry point;
+   configurations (the depthwise tails of every model of CONFIGS), and a
+   width that cannot fit a block must raise, in the wrapper and in the C
+   entry point;
 9. round-trips at 16 and 1024 lanes, and checks the f32 analysis
    transform on the card against the CPU on a small input;
 10. path 3, training (the ``train`` line): MLICPP_S at full width warm-
@@ -93,7 +98,31 @@
    of 256x256 crops, all 6 levels a step: ms a step, peak memory, losses
    finite, alpha on the simplex, no kernel launched; one f32 step at 1 x
    128^2 against the CPU at path 3's tolerances;
-14. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+14. path 6, the flagship MLICPP_L (the ``l_path`` line): its trained
+   weights read from ``ckpts/bench_default_MLICPP_L`` (the ``weights_L``
+   line: 1,215 arrays, stored in bfloat16, widened to f32), loaded strictly,
+   under ``bfloat16`` at 512 lanes: ``Codec.update`` and path 1's three
+   batches of 8, then one batch of 32 (the JAX package's L record's), each
+   bit-exact with the launches its configuration gives (K4 21 times a
+   decompress), bpp, escape share and peak memory; whole and staged times,
+   a profile, g_s's device time at batch 8; K1-K4, K6 and K7 against
+   their plain versions, exact, on a payload of L's shapes (20 y phases, a
+   z of 192 channels, about 996 encode steps; K3, K6 and K7 also on item
+   8's other geometries, K4 on all 21 phases; the kernels line's
+   ``at_MLICPP_L``); ``evaluate_codec`` over two
+   frames under ``bfloat16_mixed`` with the fused tails (K5's launches an
+   image from the model) and a profile of one ``decompress_one_image``;
+15. path 7, the small-decoder family at full width on seeded weights (the
+   ``sd_path`` line): MLICPP_M_SMALL_DEC, two batches of 8 bit-exact, g_s's
+   device time beside L's; MLICPP_M_SMALL_DEC_VBR at its 5 levels and at
+   ``inputscale`` 0.3, bit-exact, bpp of the top level above level 0's;
+   its ``vr_entbttlnck`` + ``quant_offset`` request, whose lowest gain
+   (0.002424) widens the rows; the decoder-only deployment of both:
+   ``tools.extract_decoder`` and ``python -m mlic_tpu_torch.tools.decode``
+   in a subprocess with the fused tails, whose PNG must hold the encoder
+   side's reconstruction, and a profiled in-process decode whose K5
+   launches cover the (320, 320) and (48, 48) tails;
+16. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 
 Exits non-zero, before printing any result, without CUDA or without the
@@ -104,6 +133,7 @@ caught to carry on without the kernel.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import json
 import os
@@ -126,7 +156,6 @@ STAGE_REQUESTS = 7
 ESC_SHARE = 0.03
 EVAL_FRAMES = 4                 # full 512x768 frames on path 2, plus a crop
 EVAL_CROP = (500, 750)
-K5_PER_IMAGE = 20               # 6 in g_a, 7 in g_s at compress and decompress
 FUSED_SWITCH = "MLIC_FUSED_BLOCKS"
 # K5 against its plain version: |k - p| <= tol * (1 + |p|), the tolerances
 # of the same comparison on the JAX side.  f32: the two sum the same
@@ -157,8 +186,8 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel",
 K4_LANE_CASES = ((16, 3, 20), (256, 4, 12), (512, 2, 12), (1024, 2, 12))
 # The repository's trained MLICPP_S (tools/make_bench_ckpt.py, lambda
 # 0.0483), an orbax directory read without orbax.
-CHECKPOINT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                          "ckpts", "bench_default")
+REPO = os.path.dirname(os.path.abspath(__file__))
+CHECKPOINT = os.path.join(REPO, "ckpts", "bench_default")
 CKPT_ARRAYS, CKPT_PARAMS = 670, 11_794_180
 # Path 3, training: the JAX CLI's batch and crop (tools/train.py:40-41),
 # its dead-leaves pool image size, lambda and optimizer.
@@ -176,7 +205,29 @@ VBR_MODEL = "MLICPP_S_VBR"
 VBR_INPUTSCALE = 0.3
 VBR_TOP = 5                     # gain 1.0: MLICPP_S's arithmetic
 VBR_TRAIN_STEPS = 3
+# Path 6: the JAX package's flagship MLICPP_L (N=192, M=320, 10 slices) on
+# its trained weights (bench.py:193-207), stored in bfloat16; one request at
+# the batch of the JAX package's L record; the file-based evaluation of two
+# frames with the fused tails.
+L_MODEL = "MLICPP_L"
+L_CHECKPOINT = os.path.join(os.path.dirname(CHECKPOINT),
+                            "bench_default_MLICPP_L")
+L_CKPT_ARRAYS = 1215
+L_BIG_BATCH = 32                # path 1's 16 frames and their mirror images
+L_EVAL_FRAMES = 2
+# Path 7: the small-decoder family at full width (N=192, M=320, 10 slices,
+# a 48-wide g_s) on seeded weights, no trained checkpoint existing: two
+# batches of the fixed-rate model, the VBR twin at every level, and the
+# decoder-only deployment through the two CLIs.
+SD_MODEL = "MLICPP_M_SMALL_DEC"
+SD_VBR_MODEL = "MLICPP_M_SMALL_DEC_VBR"
+SD_BATCHES = 2
+SD_FILE_LEVEL = 2               # the VBR file of the decoder-only deployment
 # the kernels a coded request launches (K1 and K2 run in update only)
+# the keys of a kernel's row at L's shapes that the kernels line carries
+AT_L_KEYS = ("launches", "status", "max_abs_err", "ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms", "kernel_ms", "queued_ms",
+             "shape", "words", "escapes", "phases_checked")
 REQUEST_KERNELS = ("rans_encode_prep", "rans_encode_scan",
                    "rans_encode_compact", "rans_decode_phase")
 KERNEL_SYMBOLS = {"select_rows": "select_rows_kernel",
@@ -229,9 +280,11 @@ def queued_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_ms(fn, symbol: str, reps: int = 5) -> float:
+def kernel_ms(fn, symbol: str, reps: int = 5) -> float | None:
     """Device time of the CUDA kernel named ``symbol`` per call of ``fn``,
-    from ``torch.profiler`` (launch overhead on the host excluded)."""
+    from ``torch.profiler`` (launch overhead on the host excluded); None
+    when the trace holds none of its launches (late in a long process the
+    profiler has dropped every device record)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -240,9 +293,10 @@ def kernel_ms(fn, symbol: str, reps: int = 5) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if symbol in e.key)
-    return us / 1e3 / reps
+    rows = [e for e in prof.key_averages() if symbol in e.key]
+    if not sum(e.count for e in rows):
+        return None
+    return sum(e.self_device_time_total for e in rows) / 1e3 / reps
 
 
 def max_abs_err(pairs) -> float:
@@ -271,11 +325,17 @@ def stream_stats(codec, enc) -> dict:
             n_esc / n_sym, "escapes": n_esc, "symbols": n_sym}
 
 
-def serve(codec, frames):
-    """The main path: compress -> decompress per request, bit-exact y_hat."""
+def serve(codec, frames, label: str | None = None, cfg=None):
+    """The main path: compress -> decompress per request, bit-exact y_hat
+    and x_hat, x_hat finite with the frames' shape; one row a request
+    (with ``label`` as its "path").  With ``cfg``, each request's kernel
+    launches must be what ``request_launches(cfg)`` derives."""
     import torch
+
+    from mlic_tpu_torch.ops import _build
     rows = []
     for r, x in enumerate(frames):
+        before = _build.launch_counts()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -285,6 +345,8 @@ def serve(codec, frames):
         dec = codec.decompress(enc["strings"], enc["shape"])
         torch.cuda.synchronize()
         t2 = time.perf_counter()
+        after = _build.launch_counts()
+        launches = {k: after[k] - before[k] for k in after}
         if not torch.equal(enc["y_hat"], dec["y_hat"]):
             n = int((enc["y_hat"] != dec["y_hat"]).sum())
             raise AssertionError(f"request {r}: y_hat differs at {n} entries")
@@ -292,13 +354,18 @@ def serve(codec, frames):
         if not torch.equal(enc["x_hat"], x_hat):
             raise AssertionError(f"request {r}: decoder x_hat differs from "
                                  "the encoder's")
-        if tuple(x_hat.shape) != (BATCH, HEIGHT, WIDTH, 3) \
+        if tuple(x_hat.shape) != tuple(x.shape) \
                 or not bool(torch.isfinite(x_hat).all()):
             raise AssertionError(f"request {r}: bad x_hat {tuple(x_hat.shape)}")
-        rows.append({"request": r, **stream_stats(codec, enc),
+        rows.append({**({"path": label} if label else {}), "request": r,
+                     "batch": list(x.shape), **stream_stats(codec, enc),
                      "encode_ms": (t1 - t0) * 1e3, "decode_ms": (t2 - t1) * 1e3,
-                     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+                     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "launches": launches})
         print(json.dumps(rows[-1]), flush=True)
+        if cfg is not None:
+            check_request_launches(launches, cfg, f"{label or 'serve'} "
+                                   f"request {r}")
         if r == 0:
             x_ref = codec.model.synthesize(enc["y_hat"])
             if not torch.equal(x_ref, x_hat):
@@ -306,7 +373,7 @@ def serve(codec, frames):
     return rows
 
 
-def stage_times(codec, frames) -> dict:
+def stage_times(codec, frames, label: str = "stage_split") -> dict:
     """Where a request's time goes: STAGE_REQUESTS requests timed whole
     (no synchronize inside), each followed by one whose ``compress`` and
     ``decompress`` record their own stages (a synchronize after each).
@@ -337,7 +404,7 @@ def stage_times(codec, frames) -> dict:
 
     def stats(v):
         return {"median": float(np.median(v)), "min": min(v), "max": max(v)}
-    print(json.dumps({"stage_split": {
+    print(json.dumps({label: {
         "requests": STAGE_REQUESTS,
         "whole_ms": {k: stats(v) for k, v in whole.items()},
         "stages_ms": {k: stats(v) for k, v in stages.items()}}}), flush=True)
@@ -370,43 +437,106 @@ def device_rows(prof) -> tuple:
 def profile_request(codec, x, wall_ms: dict, top: int = 8,
                     label: str = "profile", level: dict | None = None):
     """Device busy time of one compress and one decompress under
-    ``torch.profiler`` (kernels, copies and sets on the card), the idle
-    share against the median unprofiled wall time of the same phase, and
-    the top kernels by device time; ``level`` ({"s", "inputscale"}) codes
-    a VBR model's request at that level.  Returns the printed dict."""
+    ``torch.profiler`` (``kernels_in``), the idle share against the median
+    unprofiled wall time of the same phase, and the top kernels by device
+    time; ``level`` ({"s", "inputscale"}) codes a VBR model's request at
+    that level.  Returns the printed dict."""
     level = level or {}
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    out = {}
-    enc = None
+    out, enc = {}, {}
     for phase in ("compress", "decompress"):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            if phase == "compress":
-                enc = codec.compress(x, **level)
-            else:
-                codec.decompress(enc["strings"], enc["shape"], **level)
-            torch.cuda.synchronize()
-        rows, _ = device_rows(prof)
-        busy = sum(r[0] for r in rows)
+        if phase == "compress":
+            prof = kernels_in(lambda: enc.update(codec.compress(x, **level)),
+                              top)
+        else:
+            prof = kernels_in(lambda: codec.decompress(
+                enc["strings"], enc["shape"], **level), top)
         wall = wall_ms[phase]
-        ours = {name: [sum(r[0] for r in rows if sym in r[2]),
-                       sum(r[1] for r in rows if sym in r[2])]
-                for name, sym in KERNEL_SYMBOLS.items()}
-        out[phase] = {"device_busy_ms": busy, "unprofiled_wall_ms": wall,
-                      "idle_share": 1.0 - busy / wall,
-                      "kernel_launches": sum(r[1] for r in rows),
-                      "port_kernels_ms_launches": ours,
-                      "top": [[k[:70], ms, n] for ms, n, k in rows[:top]]}
+        out[phase] = {"device_busy_ms": prof["device_busy_ms"],
+                      "unprofiled_wall_ms": wall,
+                      "idle_share": 1.0 - prof["device_busy_ms"] / wall,
+                      **{k: v for k, v in prof.items()
+                         if k != "device_busy_ms"}}
     print(json.dumps({label: out}), flush=True)
     return out
 
 
+def request_launches(cfg) -> dict:
+    """What one compress and one decompress launch of each kernel, from
+    the configuration: the rANS encode's K7, K3 and K6 once, K4 once for z
+    and twice a slice; K1 and K2 none (``Codec.update`` only), K5 none
+    (its switch off)."""
+    return {"select_rows": 0, "eval_cdf": 0, "rans_encode_prep": 1,
+            "rans_encode_scan": 1, "rans_encode_compact": 1,
+            "rans_decode_phase": 1 + 2 * cfg.slice_num,
+            "fused_block_tail": 0}
+
+
+def check_request_launches(got: dict, cfg, where: str) -> None:
+    want = request_launches(cfg)
+    if got != want:
+        raise AssertionError(f"{where}: launches {got} a request, the "
+                             f"configuration gives {want}")
+
+
+def fused_tails(cfg, transform_dtype: str, part: str) -> list:
+    """The (C, N) widths of the residual-block tails of ``part`` ("g_a" or
+    "g_s") that K5 computes with the switch on, one entry a tail, from the
+    configuration's fields by the JAX package's rule
+    (``mlic_tpu/models/layers.py:197``, ``_fused_tail``) and its wiring
+    (``mlic_tpu/models/mlicpp.py:77-94``, ``transforms.py:23-135``): only
+    depthwise blocks fuse -- g_a is dense under ``small_decoder`` -- a GELU
+    tail always, a GDN or IGDN tail only where GDN's dtype is the block's
+    compute dtype (``float32``, ``bfloat16_mixed``; not ``bfloat16``).  g_a:
+    three GELU and three GDN tails, N wide; g_s: rb0 at its head's width
+    (M, or the synthesis width under ``old_synthesis``), then three GELU
+    and three IGDN tails at the synthesis width (N, or N // 4 under
+    ``small_decoder``)."""
+    gdn = 3 if transform_dtype != "bfloat16" else 0
+    if part == "g_a":
+        if not cfg.depthwise or cfg.small_decoder:
+            return []
+        return [(cfg.N, cfg.N)] * (3 + gdn)
+    if not cfg.depthwise:
+        return []
+    n = cfg.N // 4 if cfg.small_decoder else cfg.N
+    head = n if cfg.old_synthesis else cfg.M
+    return [(head, head)] + [(n, n)] * (3 + gdn)
+
+
+def k5_per_image(cfg, transform_dtype: str) -> int:
+    """K5's launches a coded image with the switch on: g_a once (compress),
+    g_s twice (the encoder's reconstruction and the decoder's)."""
+    return (len(fused_tails(cfg, transform_dtype, "g_a"))
+            + 2 * len(fused_tails(cfg, transform_dtype, "g_s")))
+
+
+def kernels_in(fn, top: int = 8) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (kernels, copies and
+    sets on the card): the device's busy ms and launches, {kernel: [device
+    ms, launches]} of the port's kernels, and the ``top`` ops by device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows, _ = device_rows(prof)
+    return {"device_busy_ms": sum(r[0] for r in rows),
+            "kernel_launches": sum(r[1] for r in rows),
+            "port_kernels_ms_launches": {
+                name: [sum(r[0] for r in rows if sym in r[2]),
+                       sum(r[1] for r in rows if sym in r[2])]
+                for name, sym in KERNEL_SYMBOLS.items()},
+            "top": [[k[:70], ms, n] for ms, n, k in rows[:top]]}
+
+
 def make_payload(codec, rng, batch: int = BATCH):
-    """Symbols and scale indexes with the codec's shapes (10 y phases of
-    32x24x32 per image, z of 8x12x96) and ESC_SHARE escapes."""
+    """Symbols and scale indexes with the codec's shapes (2 * slice_num y
+    phases of (H/16) x (W/32) x slice_ch per image, z of (H/64) x (W/64) x
+    N: 10 phases of 32x24x32 and a z of 8x12x96 at MLICPP_S, 20 phases and
+    8x12x192 at MLICPP_L) and ESC_SHARE escapes."""
     from mlic_tpu_torch.entropy.cdf import get_scale_table
     cfg = codec.model.cfg
     mv = codec.tables["max_value"].cpu().numpy().astype(np.int64)
@@ -715,8 +845,13 @@ def encode_profile(encode, *args) -> dict:
             "kernels": [n[:60] for n in device]}
 
 
-def check_kernels(codec, counts):
-    """Every kernel against its plain version on the payload; timings."""
+def check_kernels(codec, counts, extras: bool = True):
+    """K1-K4, K6 and K7 against their plain versions on a payload of the
+    codec's shapes (K3, K6 and K7 also on check_back_end_cases' geometries,
+    K4 on every phase, z included); timings and bounds at those shapes.
+    ``extras`` adds what path 1's codec alone carries: the composition K7
+    replaced, the launches of one ``encode_rans_v4``, the batch of 128,
+    K3's chain bound and its reciprocal divide."""
     import torch
 
     from mlic_tpu_torch.codec import encode_rans_v4
@@ -790,10 +925,12 @@ def check_kernels(codec, counts):
           17 * n_y + 13 * n_zt + rp.numel() * 4, 2 * n_y * CDF_OPS, None,
           [BATCH, sym.shape[1] + z.shape[1]],
           lambda: dr.rans_encode_prep(*prep_args))
-    out[-1].update({"composition_ms": cuda_ms(composition, 10),
-                    "composition_queued_ms": queued_ms(composition),
-                    "composition": "gather_start_freq + analytic_start_freq "
-                                   "through K1 select_rows and K2 eval_cdf"})
+    if extras:
+        out[-1].update({"composition_ms": cuda_ms(composition, 10),
+                        "composition_queued_ms": queued_ms(composition),
+                        "composition": "gather_start_freq + "
+                                       "analytic_start_freq through K1 "
+                                       "select_rows and K2 eval_cdf"})
 
     # The launches of one rANS encode: K7, K3, K6 and nothing else.  (Taken
     # before the batch-128 checks: in a run of the whole script, traces
@@ -803,29 +940,31 @@ def check_kernels(codec, counts):
     # must name K7, K3 and K6.  They have come back with some of them
     # missing, so the trace is taken again, up to PROFILE_ATTEMPTS times,
     # until they do; every attempt is printed.
-    seen = [KERNEL_SYMBOLS[k] for k in ("rans_encode_prep", "rans_encode_scan",
-                                         "rans_encode_compact")]
-    attempts = []
-    for _ in range(PROFILE_ATTEMPTS):
-        prof = encode_profile(encode_rans_v4, sym, idx, z, tables, N_LANES,
-                              n_phases, codec.z_rows_base)
-        prof["k7_k3_k6_on_device"] = all(
-            any(sym_ in n for n in prof["kernels"]) for sym_ in seen)
-        attempts.append(prof)
-        if prof["k7_k3_k6_on_device"]:
-            break
-    print(json.dumps({"encode_rans_v4_profile": attempts}), flush=True)
-    bad = [p for p in attempts if p["host_synchronizations"]
-           or not p["device_kernels"] <= p["kernel_launches"]
-           <= MAX_ENCODE_LAUNCHES]
-    if bad or not attempts[-1]["k7_k3_k6_on_device"]:
-        seen_by_trace = [(p["kernel_launches"], p["kernels"], p["sync_calls"])
-                         for p in attempts]
-        raise AssertionError(f"encode_rans_v4: launches, device kernels and "
-                             f"synchronizations of each trace: "
-                             f"{seen_by_trace} (at most {MAX_ENCODE_LAUNCHES} "
-                             f"launches and no synchronization, K7, K3 and "
-                             f"K6 on the device)")
+    if extras:
+        seen = [KERNEL_SYMBOLS[k] for k in (
+            "rans_encode_prep", "rans_encode_scan", "rans_encode_compact")]
+        attempts = []
+        for _ in range(PROFILE_ATTEMPTS):
+            prof = encode_profile(encode_rans_v4, sym, idx, z, tables, N_LANES,
+                                  n_phases, codec.z_rows_base)
+            prof["k7_k3_k6_on_device"] = all(
+                any(sym_ in n for n in prof["kernels"]) for sym_ in seen)
+            attempts.append(prof)
+            if prof["k7_k3_k6_on_device"]:
+                break
+        print(json.dumps({"encode_rans_v4_profile": attempts}), flush=True)
+        bad = [p for p in attempts if p["host_synchronizations"]
+               or not p["device_kernels"] <= p["kernel_launches"]
+               <= MAX_ENCODE_LAUNCHES]
+        if bad or not attempts[-1]["k7_k3_k6_on_device"]:
+            seen_by_trace = [(p["kernel_launches"], p["kernels"],
+                              p["sync_calls"]) for p in attempts]
+            raise AssertionError(f"encode_rans_v4: launches, device kernels "
+                                 f"and synchronizations of each trace: "
+                                 f"{seen_by_trace} (at most "
+                                 f"{MAX_ENCODE_LAUNCHES} launches and no "
+                                 f"synchronization, K7, K3 and K6 on the "
+                                 f"device)")
 
     # K3 and K6 over the whole stream of the batch, from the prep's sections.
     (st_z, fm_z, esc_z), (st_y, fm_y, esc_y) = secs
@@ -833,8 +972,10 @@ def check_kernels(codec, counts):
         back_end_case(secs, z, sym, N_LANES, n_phases, "serving")
     row["max_abs_err_prep"] = prep_err
     cases = [row] + check_back_end_cases(codec, sym, idx, z)
+    for case in cases:
+        case["model"] = cfg.name
     print(json.dumps({"encode_back_end_cases": cases}), flush=True)
-    big = check_big_batch(codec, n_phases)
+    big = check_big_batch(codec, n_phases) if extras else None
     streams = assemble_streams(comp, N_LANES)
     plain_streams = assemble_streams(dr.compact_streams_global(
         *ref, esc_pos, sym_steps, BATCH), N_LANES)
@@ -851,8 +992,9 @@ def check_kernels(codec, counts):
                                                     N_LANES), 1),
           8 * n_real + 2 * S * L + 4 * S * BATCH * W + 8 * L, 10 * S * L,
           None, [S, L], lambda: dr.rans_encode_scan(*scan_args))
-    out[-1].update(k3_chain_bound(S))
-    out[-1]["divide_checked"] = check_divide(dr.ENCODE_KERNEL, dev)
+    if extras:
+        out[-1].update(k3_chain_bound(S))
+        out[-1]["divide_checked"] = check_divide(dr.ENCODE_KERNEL, dev)
     n_words = int(comp["img_n"].sum())
     n_esc = int(comp["ecount"].sum())
     compact_args = (*got, esc_z, z, esc_y, sym, N_LANES, n_phases)
@@ -864,10 +1006,11 @@ def check_kernels(codec, counts):
           4 * S * BATCH * W + 2 * (n_words - 2 * L) + n_real + 4 * n_esc
           + 8 * L + 2 * n_words + 4 * n_esc + 8 * BATCH, 0, None,
           [S, L], lambda: dr.rans_encode_compact(*compact_args))
-    out[-1].update({"words": n_words, "escapes": n_esc,
-                    "big_batch_queued_ms": big["compact_queued_ms"]})
-    next(k for k in out if k["name"] == "rans_encode_prep")[
-        "big_batch_queued_ms"] = big["prep_queued_ms"]
+    out[-1].update({"words": n_words, "escapes": n_esc})
+    if extras:
+        out[-1]["big_batch_queued_ms"] = big["compact_queued_ms"]
+        next(k for k in out if k["name"] == "rans_encode_prep")[
+            "big_batch_queued_ms"] = big["prep_queued_ms"]
 
     # K4 phase by phase over those streams: kernel and plain on the same
     # carry, then the escape patch; the symbols must come back.
@@ -923,6 +1066,7 @@ def check_kernels(codec, counts):
           4 * P + 5 * P + 2 * consumed + 16 * rows1.shape[1] + 8 * BATCH
           + rp.numel() * 4, evals * CDF_OPS + 20 * P, None,
           list(rows1.shape), call)
+    out[-1]["phases_checked"] = n_phases + 1
     if n_z_steps + n_phases * n_per_steps != S:
         raise AssertionError("stream steps differ from the codec's layout")
     return out
@@ -1003,6 +1147,7 @@ def eval_path(state, pool) -> dict:
             log=lambda line: lines.append(f"{line} lanes={codec.n_lanes}"))
         files = sorted(os.listdir(save_dir))
     counts = _build.launch_counts()
+    per_image = k5_per_image(model.cfg, "bfloat16_mixed")
     # the escape share of the same images' streams
     n_esc = n_sym = 0
     for img in images:
@@ -1014,7 +1159,8 @@ def eval_path(state, pool) -> dict:
         FUSED_SWITCH: "1", "lanes": "auto", "lanes_resolved": codec.n_lanes,
         "images": [list(i.shape) for i in images], "files": files,
         "per_image": lines, "average": res,
-        "escape_share": n_esc / n_sym, "launches": counts}}), flush=True)
+        "escape_share": n_esc / n_sym, "launches": counts,
+        "k5_per_image": per_image}}), flush=True)
     if res["n_images"] != len(images) or len(files) != len(images):
         raise AssertionError(f"eval path: {res['n_images']} images, "
                              f"{len(files)} files for {len(images)} inputs")
@@ -1025,10 +1171,10 @@ def eval_path(state, pool) -> dict:
     bad = [k for k in ("bpp", "psnr", "ms_ssim") if not np.isfinite(res[k])]
     if bad or not res["bpp"] > 0:
         raise AssertionError(f"eval path: not finite: {bad}, bpp {res['bpp']}")
-    if counts["fused_block_tail"] != K5_PER_IMAGE * len(images):
+    if counts["fused_block_tail"] != per_image * len(images):
         raise AssertionError(
             f"eval path: K5 launched {counts['fused_block_tail']} times, "
-            f"expected {K5_PER_IMAGE} per image")
+            f"expected {per_image} per image")
     missing = [k for k, v in counts.items() if v <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the eval path: {missing}")
@@ -1122,6 +1268,7 @@ def check_fused_block(launches: int):
     import torch
 
     from mlic_tpu_torch.models import layers as tl
+    from mlic_tpu_torch.models.config import CONFIGS
     from mlic_tpu_torch.ops.fused_block import (
         ACTS,
         KERNEL,
@@ -1140,8 +1287,8 @@ def check_fused_block(launches: int):
     cases.append(("gdn", 1, N, N, HEIGHT // 2, WIDTH // 2, True))
     for act in ("gdn", "igdn", "gelu"):
         cases += [(act, 1, c, n, 37, 53, False) for c, n in
-                  ((96, 96), (160, 160), (192, 192), (320, 320), (40, 72),
-                   (100, 36))]
+                  ((96, 96), (160, 160), (192, 192), (320, 320), (48, 48),
+                   (320, 48), (40, 72), (100, 36))]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
 
     def randn(*shape, scale=1.0):
@@ -1225,13 +1372,19 @@ def check_fused_block(launches: int):
                       "tolerance": K5_TOL}), flush=True)
 
     # The kernel's shared-memory plan takes every width the configurations
-    # send through the fused tail (models/config.py), C != N too, in both
-    # dtypes and all three tails, and two bf16 blocks an SM at C = N = 96.
+    # send through the fused tail (every configuration of CONFIGS, with its
+    # old synthesis head too: the depthwise tails of g_a and g_s), C != N
+    # too, in both dtypes and all three tails, and two bf16 blocks an SM at
+    # C = N = 96.
+    widths = {(96, 160), (160, 96)}
+    for cfg in CONFIGS.values():
+        for c in (cfg, dataclasses.replace(cfg, old_synthesis=True)):
+            widths.update(fused_tails(c, "float32", "g_a")
+                          + fused_tails(c, "float32", "g_s"))
     plan = {f"{c}x{n}": {f"{act}_{str(dt).split('.')[1]}":
                          smem_bytes(c, n, act, dt) for act in ACTS
                          for dt in (torch.float32, torch.bfloat16)}
-            for c, n in ((32, 32), (96, 96), (128, 128), (160, 160),
-                         (192, 192), (320, 320), (96, 160), (160, 96))}
+            for c, n in sorted(widths)}
     print(json.dumps({"fused_block_tail_smem_bytes": plan,
                       "max": MAX_SMEM}), flush=True)
     if max(v for p in plan.values() for v in p.values()) > MAX_SMEM \
@@ -1315,11 +1468,15 @@ def check_small_reference(state_dict):
         raise AssertionError(f"analyze on the card differs from the CPU: {err}")
 
 
-def load_trained() -> dict:
-    """The trained MLICPP_S from its orbax directory: whether the system
-    zstd library resolves, the reader's seconds, the array and parameter
-    counts, and a strict load into the port's model (the ``weights``
-    line).  Returns the state_dict."""
+def load_trained(path: str = CHECKPOINT, name: str = MODEL,
+                 n_arrays: int = CKPT_ARRAYS,
+                 n_params: int | None = CKPT_PARAMS,
+                 label: str = "weights") -> dict:
+    """Trained weights from an orbax directory (by default the trained
+    MLICPP_S): whether the system zstd library resolves, the reader's
+    seconds, the array and parameter counts (``n_params`` None: the
+    model's), and a strict load into the port's model ``name`` (the
+    ``label`` line).  Returns the state_dict."""
     import ctypes.util
 
     from mlic_tpu_torch.models.registry import get_model
@@ -1327,7 +1484,7 @@ def load_trained() -> dict:
     from mlic_tpu_torch.weights import from_flax
     zstd = ctypes.util.find_library("zstd")
     t0 = time.perf_counter()
-    tree = read_orbax(CHECKPOINT)
+    tree = read_orbax(path)
     secs = time.perf_counter() - t0
 
     def leaves(t):
@@ -1335,30 +1492,39 @@ def load_trained() -> dict:
             yield from (leaves(v) if isinstance(v, dict) else (v,))
     arrays = list(leaves(tree))
     state = from_flax(tree["params"])
-    res = get_model(MODEL).load_state_dict(state, strict=True)
-    row = {"libzstd": zstd, "checkpoint": "ckpts/bench_default",
+    model = get_model(name)
+    res = model.load_state_dict(state, strict=True)
+    if n_params is None:
+        n_params = sum(t.numel() for t in model.state_dict().values())
+    row = {"libzstd": zstd, "model": name,
+           "checkpoint": os.path.relpath(path, REPO),
            "read_orbax_s": secs, "arrays": len(arrays),
            "parameters": int(sum(a.size for a in arrays)),
            "dtypes": sorted({str(a.dtype) for a in arrays}),
            "missing": res.missing_keys, "unexpected": res.unexpected_keys}
-    print(json.dumps({"weights": row}), flush=True)
-    if (row["arrays"], row["parameters"]) != (CKPT_ARRAYS, CKPT_PARAMS) \
+    print(json.dumps({label: row}), flush=True)
+    if (row["arrays"], row["parameters"]) != (n_arrays, n_params) \
             or res.missing_keys or res.unexpected_keys:
         raise AssertionError(f"trained weights: {row}")
     return state
+
+def seeded_model(name: str, transform_dtype: str, **overrides):
+    """``name`` with the seeded random weights of ``init_params``."""
+    import torch
+
+    from mlic_tpu_torch.models.registry import get_model
+    from mlic_tpu_torch.weights import init_params
+    model = get_model(name, transform_dtype=transform_dtype, **overrides)
+    model.load_state_dict(init_params(model,
+                                      torch.Generator().manual_seed(SEED)))
+    return model
 
 
 def seeded_request(noise_frames) -> None:
     """One request of the earlier runs' payload -- seeded random weights,
     noise frames -- beside the trained path: its row and its profile."""
-    import torch
-
     from mlic_tpu_torch.codec import Codec
-    from mlic_tpu_torch.models.registry import get_model
-    from mlic_tpu_torch.weights import init_params
-    model = get_model(MODEL, transform_dtype="bfloat16")
-    model.load_state_dict(init_params(model,
-                                      torch.Generator().manual_seed(SEED)))
+    model = seeded_model(MODEL, "bfloat16")
     codec = Codec(model, n_lanes=N_LANES, device="cuda")
     codec.update()
     serve(codec, [noise_frames])                        # set-up request
@@ -1667,7 +1833,7 @@ def vbr_request(codec, x, s: int, inputscale: float = 0.0) -> tuple:
              "decode_ms": (t2 - t1) * 1e3}, enc)
 
 
-def vbr_options_request(x) -> dict:
+def vbr_options_request(x, name: str = VBR_MODEL) -> dict:
     """``vr_entbttlnck`` and ``quant_offset`` on seeded weights: the
     bottleneck's quantiles widened to +-1400 and zqstep set to give a step
     near 1.0 at the top level and 0.5 at level 0, so level 0's
@@ -1677,12 +1843,9 @@ def vbr_options_request(x) -> dict:
     import torch
 
     from mlic_tpu_torch.codec import Codec
-    from mlic_tpu_torch.models.registry import get_model
-    from mlic_tpu_torch.weights import init_params
-    model = get_model(VBR_MODEL, transform_dtype="bfloat16",
-                      vr_entbttlnck=True, quant_offset=True)
-    model.load_state_dict(init_params(model,
-                                      torch.Generator().manual_seed(SEED)))
+    model = seeded_model(name, "bfloat16", vr_entbttlnck=True,
+                         quant_offset=True)
+    top = len(model.cfg.gain_init) - 1
     with torch.no_grad():
         q = model.entropy_bottleneck.quantiles
         q[:, 0, 0], q[:, 0, 2] = q[:, 0, 1] - 1400.0, q[:, 0, 1] + 1400.0
@@ -1690,22 +1853,24 @@ def vbr_options_request(x) -> dict:
         model.zqstep_0.bias.zero_()
         model.zqstep_1.weight.copy_(torch.eye(10))
         model.zqstep_1.bias.zero_()
-        # softplus(0.6097 - 0.06835 / gain): 1.0 at gain 1, 0.5 at 0.0656
+        # softplus(0.6097 - 0.06835 / gain): 1.0 at gain 1; 0.5 at 0.0656,
+        # and at any smaller gain by the bound
         model.zqstep_2.weight.fill_(-0.06835 / 10)
         model.zqstep_2.bias.fill_(0.6097)
     codec = Codec(model, n_lanes=N_LANES, device="cuda")
     codec.update()
     rows, widths = [], []
     first = None
-    for s in (VBR_TOP, 0):
+    for s in (top, 0):
         row, enc = vbr_request(codec, x, s)
         first = first or enc
         row["z_step"] = codec._z_qs_for(s, 0.0)
         rows.append(row)
         widths.append(codec.tables["cdf_rows"].shape[1])
-    dec = codec.decompress(first["strings"], first["shape"], s=VBR_TOP)
+    dec = codec.decompress(first["strings"], first["shape"], s=top)
     again = torch.equal(dec["y_hat"], first["y_hat"])
-    out = {"weights": "seeded, quantiles +-1400", "vr_entbttlnck": True,
+    out = {"model": name, "weights": "seeded, quantiles +-1400",
+           "vr_entbttlnck": True,
            "quant_offset": True, "requests": rows, "row_widths": widths,
            "z_steps_row": codec.z_steps_row,
            "top_level_decodes_after_ratchet": again}
@@ -1750,9 +1915,8 @@ def vbr_serve_path(state, frames, fixed_codec) -> tuple:
             row, enc = vbr_request(codec, x, s, isc)
             after = _build.launch_counts()
             row["launches"] = {k: after[k] - before[k] for k in after}
-            missing = [k for k in REQUEST_KERNELS if not row["launches"][k]]
-            if missing:
-                raise AssertionError(f"VBR level {s}: not launched {missing}")
+            check_request_launches(row["launches"], model.cfg,
+                                   f"VBR level {s}, inputscale {isc}")
             if s == VBR_TOP and not isc and enc["strings"] != fixed:
                 raise AssertionError("VBR level 5 (gain 1.0): streams "
                                      "differ from the MLICPP_S codec's")
@@ -1900,6 +2064,265 @@ def vbr_train_path(state) -> dict:
     return counts
 
 
+def l_path(frames, pool) -> dict:
+    """Path 6: MLICPP_L on its trained weights (the ``weights_L`` line),
+    under ``bfloat16`` at 512 lanes: ``Codec.update``, the N_REQUESTS
+    batches of path 1 and one batch of L_BIG_BATCH frames (path 1's 16 and
+    their mirror images), each bit-exact with the launches the
+    configuration gives (K4 1 + 2 * 10 a decompress); then the whole and
+    staged times, a profile, g_s's device time at batch 8, K1-K4, K6 and
+    K7 against their plain versions on a payload of L's shapes
+    (``check_kernels`` without its extras), and
+    ``evaluate_codec`` over L_EVAL_FRAMES frames under ``bfloat16_mixed``
+    with the fused tails (K5 as many times an image as the model has
+    fusable tails in g_a and, twice, in g_s), and a profile of one
+    ``decompress_one_image`` there.  Returns the launch counts and g_s's
+    ms and the kernels' rows at L's shapes."""
+    import torch
+
+    from mlic_tpu_torch.codec import Codec
+    from mlic_tpu_torch.eval import decompress_one_image, evaluate_codec
+    from mlic_tpu_torch.models.registry import get_model
+    from mlic_tpu_torch.ops import _build
+    t_path = time.perf_counter()
+    state = load_trained(L_CHECKPOINT, L_MODEL, L_CKPT_ARRAYS, None,
+                         "weights_L")
+    model = get_model(L_MODEL, transform_dtype="bfloat16")
+    model.load_state_dict(state, strict=True)
+    cfg = model.cfg
+    big = np.ascontiguousarray(np.concatenate([pool, pool[:, :, ::-1]]))
+    _build.reset_launch_counts()
+    codec = Codec(model, n_lanes=N_LANES, device="cuda")
+    t0 = time.perf_counter()
+    codec.update()
+    update_s = time.perf_counter() - t0
+    in_update = _build.launch_counts()
+    rows = serve(codec, frames, "L", cfg)
+    rows += serve(codec, [big], f"L_batch_{L_BIG_BATCH}", cfg)
+    counts = _build.launch_counts()
+    if not (in_update["select_rows"] and in_update["eval_cdf"]):
+        raise AssertionError(f"path 6: update launched {in_update}")
+    missing = [k for k, v in counts.items()
+               if v <= 0 and k != "fused_block_tail"]
+    if missing:
+        raise AssertionError(f"kernels not launched on path 6: {missing}")
+    wall_ms = stage_times(codec, frames, "stage_split_L")
+    prof = profile_request(codec, frames[0], wall_ms, label="profile_L")
+    enc = codec.compress(frames[0])
+    g_s_ms = cuda_ms(lambda: model.synthesize(enc["y_hat"]), 5)
+    del enc
+    # K1-K4, K6 and K7 against their plain versions at L's coding shapes,
+    # which no MLICPP_S codec gives them: 20 y phases, a z of 192 channels,
+    # about twice the encode steps.
+    kernel_rows = check_kernels(codec, counts, extras=False)
+    print(json.dumps({"kernels_at_L": kernel_rows}), flush=True)
+    del codec
+
+    os.environ[FUSED_SWITCH] = "1"
+    fused = get_model(L_MODEL, transform_dtype="bfloat16_mixed")
+    fused.load_state_dict(state, strict=True)
+    per_image = k5_per_image(cfg, "bfloat16_mixed")
+    images = [f.astype(np.float32) / 255.0 for f in pool[:L_EVAL_FRAMES]]
+    _build.reset_launch_counts()
+    ecodec = Codec(fused, device="cuda")        # n_lanes="auto"
+    ecodec.update()
+    with tempfile.TemporaryDirectory() as d:
+        res = evaluate_codec(ecodec, images, d, log=lambda line: None)
+        eval_counts = _build.launch_counts()
+        decode_prof = kernels_in(lambda: decompress_one_image(
+            ecodec, os.path.join(d, "img_000.bin")))
+    os.environ.pop(FUSED_SWITCH)
+    out = {"model": L_MODEL, "weights": "trained (ckpts/"
+           "bench_default_MLICPP_L)", "transform_dtype": "bfloat16",
+           "lanes": N_LANES, "update_s": update_s,
+           "launches_in_update": in_update, "launches": counts,
+           "launches_a_request": request_launches(cfg),
+           "requests": rows, "g_s_ms_batch_8": g_s_ms,
+           "profile_decompress_k4": prof["decompress"][
+               "port_kernels_ms_launches"]["rans_decode_phase"],
+           "eval": {"transform_dtype": "bfloat16_mixed", FUSED_SWITCH: "1",
+                    "lanes_resolved": ecodec.n_lanes, "average": res,
+                    "launches": eval_counts, "k5_per_image": per_image,
+                    "decompress_one_image_profile": decode_prof},
+           "path_s": time.perf_counter() - t_path}
+    print(json.dumps({"l_path": out}), flush=True)
+    k5_decode = decode_prof["port_kernels_ms_launches"]["fused_block_tail"]
+    if eval_counts["fused_block_tail"] != per_image * len(images) \
+            or k5_decode[1] != len(fused_tails(cfg, "bfloat16_mixed",
+                                               "g_s")):
+        raise AssertionError(f"path 6 eval: K5 launched "
+                             f"{eval_counts['fused_block_tail']} times "
+                             f"({per_image} an image expected), "
+                             f"{k5_decode[1]} in one decode")
+    bad = [k for k in ("bpp", "psnr", "ms_ssim") if not np.isfinite(res[k])]
+    if bad or res["n_images"] != len(images):
+        raise AssertionError(f"path 6 eval: {res}")
+    return {"serve": counts, "eval": eval_counts, "g_s_ms": g_s_ms,
+            "kernels": kernel_rows}
+
+
+def decoder_only(frames) -> dict:
+    """The decoder-only deployment of the small decoder, fixed rate and
+    its VBR twin at level SD_FILE_LEVEL, under ``bfloat16_mixed`` with the
+    fused tails: the seeded weights saved as a torch file,
+    ``tools.extract_decoder`` to a decoder-only file, one frame written by
+    ``compress_one_image``, ``python -m mlic_tpu_torch.tools.decode`` in a
+    subprocess on the card, whose PNG must hold the encoder side's x_hat
+    rounded; then one in-process ``decompress_one_image`` by a codec of
+    the decoder-only weights (the CLI's ``decoder_state``), profiled: x_hat
+    equal to the encoder's, K5 launched once a fusable tail of g_s, at
+    (320, 320) and (48, 48), and g_a, h_a still zero."""
+    from collections import Counter
+
+    import torch
+    from PIL import Image
+
+    from mlic_tpu_torch.codec import Codec
+    from mlic_tpu_torch.eval import compress_one_image, decompress_one_image
+    from mlic_tpu_torch.models import layers
+    from mlic_tpu_torch.models.registry import get_model
+    from mlic_tpu_torch.tools import decode, extract_decoder
+    os.environ[FUSED_SWITCH] = "1"
+    x = frames[0][:1].astype(np.float32) / 255.0
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, level in ((SD_MODEL, None), (SD_VBR_MODEL, SD_FILE_LEVEL)):
+            model = seeded_model(name, "bfloat16_mixed")
+            full = os.path.join(d, f"{name}.pt")
+            dec_file = os.path.join(d, f"{name}_decoder.pt")
+            torch.save(model.state_dict(), full)
+            kept = extract_decoder.main(["--checkpoint", full,
+                                         "--out", dec_file])
+            bits, pngs = (os.path.join(d, f"{name}_{k}")
+                          for k in ("bits", "png"))
+            os.makedirs(bits)
+            path = os.path.join(bits, "img_000.bin")
+            enc = compress_one_image(Codec(model, device="cuda"), x, path,
+                                     s=level)
+            del model
+            cmd = [sys.executable, "-m", "mlic_tpu_torch.tools.decode",
+                   "--model", name, "--bitstream-dir", bits, "--output-dir",
+                   pngs, "--checkpoint", dec_file, "--transform-dtype",
+                   "bfloat16_mixed"] + (["--vbr"] if level is not None
+                                        else [])
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=REPO, capture_output=True,
+                                  text=True, timeout=600,
+                                  env=dict(os.environ, **{FUSED_SWITCH: "1"}))
+            cli_s = time.perf_counter() - t0
+            if proc.returncode:
+                raise AssertionError(f"decode CLI failed ({proc.returncode})"
+                                     f": {proc.stderr[-3000:]}")
+            png = np.asarray(Image.open(os.path.join(pngs, "img_000.png")))
+            want = np.clip(enc["x_hat_enc"][0] * 255.0 + 0.5, 0,
+                           255).astype(np.uint8)
+
+            dm = get_model(name, transform_dtype="bfloat16_mixed")
+            dm.load_state_dict(decode.decoder_state(dm, dec_file))
+            dcodec = Codec(dm, device="cuda")
+            dcodec.update()
+            decompress_one_image(dcodec, path, vbr=level is not None)
+            widths, plain = Counter(), layers.fused_block_tail
+
+            def recording(mid, skip, *args, **kw):
+                widths[f"{mid.shape[1]}x{skip.shape[1]}"] += 1
+                return plain(mid, skip, *args, **kw)
+
+            got = {}
+            layers.fused_block_tail = recording
+            try:
+                prof = kernels_in(lambda: got.update(decompress_one_image(
+                    dcodec, path, vbr=level is not None)))
+            finally:
+                layers.fused_block_tail = plain
+            encoder_zero = all(not bool(t.any()) for k, t in
+                               dm.state_dict().items()
+                               if extract_decoder.is_encoder(k))
+            k5 = prof["port_kernels_ms_launches"]["fused_block_tail"]
+            tails = fused_tails(dm.cfg, "bfloat16_mixed", "g_s")
+            want_widths = Counter(f"{c}x{n}" for c, n in tails)
+            row = {"model": name, "level": level, "frame": list(x.shape),
+                   "bpp": enc["bpp"], "decoder_leaves": len(kept),
+                   "cli_s": cli_s, "cli_stdout": proc.stdout.strip()[-300:],
+                   "png_equals_encoder_x_hat": bool(np.array_equal(png,
+                                                                   want)),
+                   "in_process_x_hat_bit_exact": bool(np.array_equal(
+                       got["x_hat"], enc["x_hat_enc"])),
+                   "k5_widths": dict(widths),
+                   "k5_widths_by_the_rule": dict(want_widths),
+                   "k5_launches_profiled": k5[1],
+                   "k5_ms": k5[0], "decode_profile": prof,
+                   "g_a_h_a_zero": encoder_zero}
+            out[name] = row
+            if not (row["png_equals_encoder_x_hat"]
+                    and row["in_process_x_hat_bit_exact"] and encoder_zero
+                    and widths == want_widths and k5[1] == len(tails)
+                    and widths["320x320"] and widths["48x48"]):
+                print(json.dumps({"decoder_only": out}), flush=True)
+                raise AssertionError(f"decoder-only deployment of {name}: "
+                                     f"{row}")
+    os.environ.pop(FUSED_SWITCH)
+    return out
+
+
+def sd_path(frames, l_g_s_ms: float) -> dict:
+    """Path 7: the small-decoder family at full width on seeded weights.
+    MLICPP_M_SMALL_DEC under ``bfloat16`` at 512 lanes: SD_BATCHES batches
+    of 8 frames, bit-exact with the configuration's launches, and g_s's
+    device time at batch 8 beside path 6's L g_s; MLICPP_M_SMALL_DEC_VBR:
+    one batch at each level and at ``inputscale`` VBR_INPUTSCALE, each
+    bit-exact with those launches, bpp at the top level (gain 1.0) above
+    level 0's; the ``vr_entbttlnck`` + ``quant_offset`` request whose
+    lowest level (gain 0.002424) widens the rows; the decoder-only
+    deployment.  Returns the launch counts of the whole path."""
+    from mlic_tpu_torch.codec import Codec
+    from mlic_tpu_torch.ops import _build
+    t_path = time.perf_counter()
+    _build.reset_launch_counts()
+    model = seeded_model(SD_MODEL, "bfloat16")
+    codec = Codec(model, n_lanes=N_LANES, device="cuda")
+    codec.update()
+    rows = serve(codec, frames[:SD_BATCHES], "small_decoder", model.cfg)
+    enc = codec.compress(frames[0])
+    g_s_ms = cuda_ms(lambda: model.synthesize(enc["y_hat"]), 5)
+    del enc, codec, model
+
+    vbr = seeded_model(SD_VBR_MODEL, "bfloat16")
+    vcodec = Codec(vbr, n_lanes=N_LANES, device="cuda")
+    vcodec.update()
+    top = len(vbr.cfg.gain_init) - 1            # gain 1.0
+    levels = [(s, 0.0) for s in range(top + 1)]
+    levels.append((0, VBR_INPUTSCALE))
+    vrows = []
+    for s, isc in levels:
+        before = _build.launch_counts()
+        row, _ = vbr_request(vcodec, frames[0], s, isc)
+        after = _build.launch_counts()
+        row["launches"] = {k: after[k] - before[k] for k in after}
+        check_request_launches(row["launches"], vbr.cfg,
+                               f"{SD_VBR_MODEL} level {s}, inputscale {isc}")
+        vrows.append(row)
+    del vcodec, vbr
+    options = vbr_options_request(frames[0], SD_VBR_MODEL)
+    deployed = decoder_only(frames)
+    counts = _build.launch_counts()
+    out = {"model": SD_MODEL, "weights": "seeded random",
+           "transform_dtype": "bfloat16", "lanes": N_LANES,
+           "requests": rows, "g_s_ms_batch_8": g_s_ms,
+           "l_g_s_ms_batch_8": l_g_s_ms,
+           "vbr": {"model": SD_VBR_MODEL, "levels": vrows,
+                   "bpp_by_level": [r["bpp"] for r in vrows[:top + 1]],
+                   "options": options},
+           "decoder_only": deployed, "launches": counts,
+           "path_s": time.perf_counter() - t_path}
+    print(json.dumps({"sd_path": out}), flush=True)
+    if not vrows[top]["bpp"] > vrows[0]["bpp"]:
+        raise AssertionError(f"{SD_VBR_MODEL}: bpp at the top level "
+                             f"{vrows[top]['bpp']} not above level 0's "
+                             f"{vrows[0]['bpp']}")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1935,7 +2358,7 @@ def main() -> int:
     codec.update()          # raises unless both self-checks pass
     print(json.dumps({"update_s": time.perf_counter() - t0}), flush=True)
     in_update = _build.launch_counts()
-    serve(codec, frames)
+    serve(codec, frames, cfg=model.cfg)      # each request's launches exact
     counts = _build.launch_counts()
     per_batch = {k: (v - in_update[k]) / N_REQUESTS for k, v in counts.items()}
     print(json.dumps({"launches_on_main_path": counts,
@@ -1945,10 +2368,6 @@ def main() -> int:
                if v <= 0 and k != "fused_block_tail"]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
-    if counts["fused_block_tail"]:
-        raise AssertionError("K5 launched on path 1, where its switch is off")
-    if per_batch["select_rows"] or per_batch["eval_cdf"]:
-        raise AssertionError(f"K1 or K2 launched while serving: {per_batch}")
 
     wall_ms = stage_times(codec, frames)
     profile_request(codec, frames[0], wall_ms)
@@ -1967,13 +2386,22 @@ def main() -> int:
     del trainer
     vbr_counts, vbr_profiles = vbr_serve_path(state, frames, codec)
     vbr_train_counts = vbr_train_path(state)
+    l_counts = l_path(frames, pool)
+    sd_counts = sd_path(frames, l_counts["g_s_ms"])
     for k in kernels:
         k["launches_by_path"] = {"serve": counts[k["name"]],
                                  "eval": eval_counts[k["name"]],
                                  "train": train_counts[k["name"]],
                                  "serve_after_training": after[k["name"]],
                                  "vbr_serve": vbr_counts[k["name"]],
-                                 "vbr_train": vbr_train_counts[k["name"]]}
+                                 "vbr_train": vbr_train_counts[k["name"]],
+                                 "l_serve": l_counts["serve"][k["name"]],
+                                 "l_eval": l_counts["eval"][k["name"]],
+                                 "small_decoder": sd_counts[k["name"]]}
+        at_l = [r for r in l_counts["kernels"] if r["name"] == k["name"]]
+        if at_l:
+            k["at_MLICPP_L"] = {key: at_l[0][key] for key in AT_L_KEYS
+                                if key in at_l[0]}
         k["vbr_request_profiler_ms"] = {
             f"level_{s}": sum(p[ph]["port_kernels_ms_launches"][k["name"]][0]
                               for ph in ("compress", "decompress"))

@@ -69,6 +69,23 @@ def gaussian_row_params(scale_table: np.ndarray, tail_mass: float = _TAIL_MASS,
     return params.astype(np.float32), lengths, offsets
 
 
+def _erfc(x: torch.Tensor) -> torch.Tensor:
+    """``torch.erfc`` computed on the calling thread when ``x`` lies on the
+    CPU.  There it is MKL's vector math, split over torch's threads; one
+    multi-threaded call has come back with one thread's share many ulp off
+    (a table that failed its own self-checks), so that a table would
+    depend on the thread count and on the call.  On one thread every entry
+    is one function of its input."""
+    if x.device.type != "cpu":
+        return torch.erfc(x)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return torch.erfc(x)
+    finally:
+        torch.set_num_threads(threads)
+
+
 def eval_cdf_plain(k, m, b, A, C, B):
     """cdf(k), int32, same shape as k; the five f32 columns have n elements
     and element i of k uses column entry i % n.  The op sequence (separate
@@ -76,7 +93,7 @@ def eval_cdf_plain(k, m, b, A, C, B):
     n = m.numel()
     kk = k.reshape(-1, n)
     m, b, A, C, B = (c.reshape(n) for c in (m, b, A, C, B))
-    g = 0.5 * torch.erfc(-(kk.float() * m + b))
+    g = 0.5 * _erfc(-(kk.float() * m + b))
     raw = torch.minimum(torch.clamp(g * A + C, min=0.0), B)
     return (kk + torch.round(raw).to(torch.int32)).reshape(k.shape)
 

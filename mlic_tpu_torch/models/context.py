@@ -264,13 +264,28 @@ class EntropyParameters(nn.Module):
 
 
 class LatentResidualPrediction(nn.Module):
-    """0.5*tanh-bounded rounding-residual prediction (context.py:297)."""
+    """0.5*tanh-bounded rounding-residual prediction (context.py:297):
+    three convolutions to widths 224, 128, ``out_dim``, or with
+    ``old_wide`` (the small decoder's ``LatentResidualPredictionOld``)
+    four, narrowing from ``in_ch`` to ``out_dim`` in even quarters."""
 
-    def __init__(self, in_ch: int, out_dim: int, depthwise: bool = True):
+    def __init__(self, in_ch: int, out_dim: int, depthwise: bool = True,
+                 old_wide: bool = False):
         super().__init__()
-        self.c0 = Conv3x3(in_ch, 224, 1, depthwise)
-        self.c1 = Conv3x3(224, 128, 1, depthwise)
-        self.c2 = Conv3x3(128, out_dim, 1, depthwise)
+        if old_wide:
+            diff = abs(out_dim - in_ch)
+            dims = [in_ch - diff // 4, in_ch - diff // 2,
+                    in_ch - diff * 3 // 4, out_dim]
+        else:
+            dims = [224, 128, out_dim]
+        self.n_convs = len(dims)
+        for i, d in enumerate(dims):
+            self.add_module(f"c{i}", Conv3x3(in_ch, d, 1, depthwise))
+            in_ch = d
 
     def forward(self, x):
-        return 0.5 * torch.tanh(self.c2(gelu(self.c1(gelu(self.c0(x))))))
+        for i in range(self.n_convs):
+            if i:
+                x = gelu(x)
+            x = getattr(self, f"c{i}")(x)
+        return 0.5 * torch.tanh(x)

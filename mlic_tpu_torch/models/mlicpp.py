@@ -1,7 +1,8 @@
 """MLIC++ model, PyTorch (port of ``mlic_tpu/models/mlicpp.py``).
 
-``MLICPlusPlus`` for fixed-rate configurations with the full-width decoder:
-the training forward (``forward``: noisy z likelihoods, STE rounding of y,
+``MLICPlusPlus`` for the fixed-rate configurations, the full-width and the
+small decoder, depthwise or dense, with either synthesis head: the
+training forward (``forward``: noisy z likelihoods, STE rounding of y,
 the per-slice checkerboard, channel and global contexts) and its auxiliary
 loss, and the coding halves: ``analyze`` (g_a, h_a, z rounding), the
 encode pass (``codec_encode_pass``: h_s, then per slice an anchor and a
@@ -109,36 +110,39 @@ def times(t, scale):
 class MLICPlusPlus(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.small_decoder or cfg.old_synthesis:
-            raise NotImplementedError(
-                f"{cfg.name}: the port covers full-decoder configurations "
-                "only")
         self.cfg = cfg
         N, M, S, C = cfg.N, cfg.M, cfg.slice_num, cfg.slice_ch
-        dw = cfg.depthwise
+        dw, sd = cfg.depthwise, cfg.small_decoder
+        # The small decoder (mlicpp.py:73-131): a dense encoder, an
+        # N//4-wide synthesis, h_s and its hyper params at M//4, a dense
+        # (96, 96) channel context and the wide LRP.
+        enc_dw = dw and not sd
+        hyper_M = M // 4 if sd else M
         tdt, gdt = _TRANSFORM_DTYPES[cfg.transform_dtype]
-        self.g_a = AnalysisTransform(N, M, dw, tdt, gdt)
-        self.h_a = HyperAnalysis(M, N, dw, tdt)
-        self.g_s = SynthesisTransform(N, M, dw, tdt, gdt)
-        self.h_s = HyperSynthesis(M, N, dw)     # f32: feeds the entropy path
+        self.g_a = AnalysisTransform(N, M, enc_dw, tdt, gdt)
+        self.h_a = HyperAnalysis(M, N, enc_dw, tdt)
+        self.g_s = SynthesisTransform(N // 4 if sd else N, M, dw, tdt, gdt,
+                                      cfg.old_synthesis)
+        self.h_s = HyperSynthesis(hyper_M, N, dw)   # f32: the entropy path
         self.entropy_bottleneck = self._make_entropy_bottleneck(N)
         for i in range(S):
             self.add_module(f"local_{i}",
                             LocalContext(C, window_size=cfg.context_window))
         for i in range(1, S):
-            self.add_module(f"chctx_{i}", ChannelContext(C * i, C, (192, 128),
-                                                         dw))
+            self.add_module(f"chctx_{i}", ChannelContext(
+                C * i, C, (96, 96) if sd else (192, 128), enc_dw))
             self.add_module(f"ginter_{i}", LinearGlobalInterContext(
                 C * i, C * 2, max(C * i // 32, 1)))
             self.add_module(f"gintra_{i}", LinearGlobalIntraContext(C))
         for i in range(S):
             self.add_module(f"ep_anchor_{i}", EntropyParameters(
-                2 * M if i == 0 else 6 * C + 2 * M, 2 * C))
+                2 * hyper_M if i == 0 else 6 * C + 2 * hyper_M, 2 * C))
             self.add_module(f"ep_nonanchor_{i}", EntropyParameters(
-                2 * C + 2 * M if i == 0 else 10 * C + 2 * M, 2 * C))
+                2 * C + 2 * hyper_M if i == 0 else 10 * C + 2 * hyper_M,
+                2 * C))
             for branch in ("lrp_anchor", "lrp_nonanchor"):
                 self.add_module(f"{branch}_{i}", LatentResidualPrediction(
-                    M + (i + 1) * C, C, dw))
+                    hyper_M + (i + 1) * C, C, dw, old_wide=sd))
         self.register_buffer(
             "scale_table", torch.tensor(get_scale_table(), dtype=torch.float32),
             persistent=False)

@@ -1,11 +1,11 @@
 """Analysis / synthesis transforms g_a, h_a, h_s, g_s, NCHW.
 
-Port of ``mlic_tpu/models/transforms.py:24-135`` (depthwise variant,
-``old_head=False``).  ``dtype`` is the compute dtype of g_a/h_a/g_s; their
-outputs are cast back to f32.  ``gdn_dtype`` is the GDN/IGDN policy of g_a
-and g_s: ``None`` computes the norm in f32 with casts around it, the compute
-dtype is the mixed policy (``layers.GDN``).  h_s always runs in f32: it
-feeds the entropy parameters.
+Port of ``mlic_tpu/models/transforms.py:24-135``, depthwise or dense,
+with either synthesis head.  ``dtype`` is the compute dtype of
+g_a/h_a/g_s; their outputs are cast back to f32.  ``gdn_dtype`` is the
+GDN/IGDN policy of g_a and g_s: ``None`` computes the norm in f32 with
+casts around it, the compute dtype is the mixed policy (``layers.GDN``).
+h_s always runs in f32: it feeds the entropy parameters.
 """
 
 from __future__ import annotations
@@ -87,15 +87,18 @@ class HyperSynthesis(nn.Module):
 
 
 class SynthesisTransform(nn.Module):
-    """g_s: latent [B,M,h,w] -> image [B,3,16h,16w]."""
+    """g_s: latent [B,M,h,w] -> image [B,3,16h,16w].  ``old_head``
+    (``SynthesisTransformOld``, transforms.py:95) maps M to N in the first
+    block, through its 1x1 skip, instead of keeping M."""
 
     def __init__(self, N: int, M: int, depthwise: bool = True, dtype=None,
-                 gdn_dtype=None):
+                 gdn_dtype=None, old_head: bool = False):
         super().__init__()
         dw, dt, gdt = depthwise, dtype, gdn_dtype
         self.dtype = dtype
-        self.rb0 = ResidualBlock(M, M, dw, dt)
-        self.up0 = ResidualBlockUpsample(M, N, 2, dw, dt, gdt)
+        head = N if old_head else M
+        self.rb0 = ResidualBlock(M, head, dw, dt)
+        self.up0 = ResidualBlockUpsample(head, N, 2, dw, dt, gdt)
         self.rb1 = ResidualBlock(N, N, dw, dt)
         self.up1 = ResidualBlockUpsample(N, N, 2, dw, dt, gdt)
         self.rb2 = ResidualBlock(N, N, dw, dt)

@@ -31,7 +31,7 @@ for n in names:
 import chip_smoke
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -40,7 +40,10 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORTS], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 38     # every module was imported
+    names = out.stdout.split()
+    assert len(names) >= 40                       # every module was imported
+    for name in ("tools.decode", "tools.extract_decoder"):
+        assert f"mlic_tpu_torch.{name}" in names
 
 
 def test_entry_points_default_to_cuda():

@@ -8,6 +8,11 @@ check and both self-checks, and differ from JAX's in few entries, each by
 +-1.
 """
 
+import hashlib
+import os
+import subprocess
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +26,26 @@ from mlic_tpu.entropy.models import EntropyBottleneck as FlaxEB
 from mlic_tpu_torch.entropy import cdf as tcdf
 from mlic_tpu_torch.entropy import models as tmodels
 from mlic_tpu_torch.entropy import parametric as tp
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# A fresh process on four threads: a payload-sized evaluation as its first
+# erfc, then the table; the digests of both, what both self-checks count,
+# and the thread count afterwards.
+_FRESH_TABLE = """
+import hashlib, torch
+torch.set_num_threads(4)
+from mlic_tpu_torch.entropy import cdf, parametric as tp
+params, lengths, _ = tp.gaussian_row_params(cdf.get_scale_table())
+p = torch.from_numpy(params)
+k = torch.arange(8192, dtype=torch.int32)[:, None].expand(8192, len(params))
+big = tp.eval_cdf(k.contiguous(), *p.t()[:5]).numpy()
+table = tp.generate_tables(p, lengths)
+print(hashlib.sha256(big.tobytes()).hexdigest(),
+      hashlib.sha256(table.tobytes()).hexdigest(),
+      tp.self_check(p, table, lengths), tp.self_check_encode(p, table, lengths),
+      torch.get_num_threads())
+"""
 
 
 @pytest.fixture(scope="module")
@@ -149,3 +174,48 @@ def test_eval_cdf_plain_matches_formula(row_params):
     assert torch.equal(both[0], one)
     assert torch.equal(both[1][:-1], one[1:])
     assert torch.equal(one[0], torch.zeros(len(params), dtype=torch.int32))
+
+
+def test_cpu_erfc_runs_on_one_thread(row_params, monkeypatch):
+    """On the CPU eval_cdf_plain computes erfc on the calling thread and
+    gives torch's thread count back: a multi-threaded erfc once returned
+    one thread's share several ulp off, and a table then failed its own
+    self-checks."""
+    params, _, _ = row_params
+    p = torch.from_numpy(params)
+    seen, erfc = [], torch.erfc
+
+    def recording(x):
+        seen.append(torch.get_num_threads())
+        return erfc(x)
+
+    monkeypatch.setattr(torch, "erfc", recording)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(3)
+    try:
+        k = torch.arange(40, dtype=torch.int32)[:, None].expand(40, len(params))
+        tp.eval_cdf(k.contiguous(), *p.t()[:5])
+        assert seen == [1] and torch.get_num_threads() == 3
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_cpu_table_is_the_same_in_fresh_processes(row_params, port_table):
+    """Two fresh processes on four threads, whose first erfc is a
+    payload-sized evaluation, build the table of this process, bit for bit,
+    pass both self-checks, and evaluate the payload as this process does."""
+    params, _, _ = row_params
+    p = torch.from_numpy(params)
+    k = torch.arange(8192, dtype=torch.int32)[:, None].expand(8192, len(params))
+    big = tp.eval_cdf(k.contiguous(), *p.t()[:5]).numpy()
+    want = [hashlib.sha256(big.tobytes()).hexdigest(),
+            hashlib.sha256(port_table.tobytes()).hexdigest(), "0", "0", "4"]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    procs = [subprocess.Popen([sys.executable, "-c", _FRESH_TABLE], cwd=ROOT,
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for _ in range(2)]
+    for proc in procs:
+        out, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, err
+        assert out.split() == want

@@ -10,7 +10,8 @@ where it exceeds 1).  The factorized prior's tables are bit-equal.  The
 codec's round trips are the port's own, bit-exact, and its top level
 (gain 1.0) writes MLICPP_TINY's bytes.  The whole-model JAX programs
 compile at XLA optimization level 0: the stage-2 forward (one program for
-every level), the forward with both options on, and two MGDA steps.
+every level) of the twin and of its small-decoder twin (TINY_SD_VBR), the
+forward with both options on, and two MGDA steps.
 """
 
 import dataclasses
@@ -87,14 +88,13 @@ def _frames(shape, seed):
     return np.random.default_rng(seed).random(shape, dtype=np.float32)
 
 
-@pytest.fixture(scope="module")
-def fwd():
-    """JAX's stage-2 training forward at every case of LEVELS (one program,
-    the level and inputscale traced) with the noise of the MGDA step's
-    first draw, and the noise read back."""
-    port = _port()
+def _stage2_forward(levels, **overrides):
+    """JAX's stage-2 training forward at each (level, inputscale) of
+    ``levels`` (one program, the level and inputscale traced) with the
+    noise of the MGDA step's first draw, and the noise read back."""
+    port = _port(**overrides)
     params = to_flax(port.state_dict())
-    model = _jax_model()
+    model = _jax_model(**overrides)
     x = _frames(SHAPE, 1)
     _, noise_rng = jax.random.split(jax.random.key(SEED))
 
@@ -111,7 +111,7 @@ def fwd():
     args = (params, x, jnp.int32(0), jnp.float32(0.0), noise_rng)
     prog = jax.jit(f).lower(*args).compile(FAST_COMPILE)
     outs, noise = {}, None
-    for s, isc in LEVELS:
+    for s, isc in levels:
         out, inter = prog(params, x, jnp.int32(s), jnp.float32(isc),
                           noise_rng)
         outs[(s, isc)] = jax.tree_util.tree_map(np.asarray, out)
@@ -120,6 +120,11 @@ def fwd():
         b, h, w, c = z.shape
         noise = np.ascontiguousarray((z_tilde - z).reshape(b * h * w, c).T)
     return {"params": params, "x": x, "outs": outs, "noise": noise}
+
+
+@pytest.fixture(scope="module")
+def fwd():
+    return _stage2_forward(LEVELS)
 
 
 @pytest.mark.parametrize("s,inputscale", LEVELS)
@@ -131,6 +136,29 @@ def test_stage2_forward_matches_flax(fwd, s, inputscale):
                     torch.from_numpy(fwd["noise"]), s=s,
                     inputscale=inputscale)
     want = fwd["outs"][(s, inputscale)]
+    _close(out["x_hat"].numpy(), want["x_hat"])
+    for k in ("y", "z"):
+        _close(_nhwc(out["likelihoods"][k]), want["likelihoods"][k])
+
+
+SD = {"small_decoder": True}     # TINY_SD_VBR of tests/test_vbr.py
+
+
+@pytest.fixture(scope="module")
+def sd_fwd():
+    return _stage2_forward([(s, 0.0) for s in range(3)], **SD)
+
+
+@pytest.mark.parametrize("s", [0, 1, 2])
+def test_small_decoder_twin_forward_matches_flax(sd_fwd, s):
+    """The small-decoder VBR twin's stage-2 training forward at every
+    level: it inherits the small decoder's modules and adds only the VBR
+    machinery."""
+    model = _port(**SD)
+    with torch.no_grad():
+        out = model(torch.from_numpy(sd_fwd["x"]), True,
+                    torch.from_numpy(sd_fwd["noise"]), s=s)
+    want = sd_fwd["outs"][(s, 0.0)]
     _close(out["x_hat"].numpy(), want["x_hat"])
     for k in ("y", "z"):
         _close(_nhwc(out["likelihoods"][k]), want["likelihoods"][k])
@@ -310,7 +338,7 @@ def _wide_steps(model):
 
 
 @pytest.mark.parametrize("case", ["levels", "inputscale", "quant_offset",
-                                  "vr_entbttlnck"])
+                                  "vr_entbttlnck", "small_decoder"])
 def test_codec_round_trip_bit_exact(case):
     """The port's compress -> decompress at two requests each: y_hat and
     x_hat bit-identical.  ``vr_entbttlnck`` codes a step near 1 first and
@@ -318,8 +346,9 @@ def test_codec_round_trip_bit_exact(case):
     the codec rebuilds the first step's tables at the new width, and its
     stream still decodes."""
     overrides = {"quant_offset": {"quant_offset": True},
-                 "vr_entbttlnck": BOTH}.get(case, {})
+                 "vr_entbttlnck": BOTH, "small_decoder": SD}.get(case, {})
     requests = {"levels": [(0, 0.0), (2, 0.0)],
+                "small_decoder": [(0, 0.0), (1, 0.0), (2, 0.0)],
                 "inputscale": [(1, 0.3), (0, 1.7)],
                 "quant_offset": [(0, 0.0), (1, 0.45)],
                 "vr_entbttlnck": [(2, 0.0), (0, 0.0)]}[case]
@@ -340,8 +369,8 @@ def test_codec_round_trip_bit_exact(case):
         encoded.append(enc)
         widths.append(codec.tables["cdf_rows"].shape[1])
     sizes = [sum(len(b) for b in e["strings"][0]) for e in encoded]
-    if case == "levels":
-        assert sizes[0] < sizes[1]
+    if case in ("levels", "small_decoder"):
+        assert sizes == sorted(sizes) and sizes[0] < sizes[-1]
     if case == "vr_entbttlnck":
         steps = sorted(codec._zqs_cache.values())
         assert 0.49 < steps[0] < 0.51 and 0.95 < steps[1] < 1.05, steps
