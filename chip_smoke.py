@@ -63,7 +63,31 @@
    entry point;
 9. round-trips at 16 and 1024 lanes, and checks the f32 analysis
    transform on the card against the CPU on a small input;
-10. path 3, training (the ``train`` line): MLICPP_S at full width warm-
+10. path 8, the reference's codec (the ``host_coded`` line): path 1's
+   model through ``Codec(backend="steps")`` and ``"fused"`` on path 1's
+   first batch -- the host rANS coder (``entropy/rans``, built by g++ into
+   ``build/host/``) codes z and y, one stream of each an image, every
+   phase crossing to the host -- each round trip bit-exact, steps and
+   fused byte-identical, both reconstructing path 1's device-backend
+   y_hat and x_hat, no kernel launched (not in ``update`` either); bpp
+   beside the v4 stream's, ms a direction and the host coder's share;
+   MLICPP_S_VBR at level 3 and the seeded ``vr_entbttlnck`` +
+   ``quant_offset`` model at two levels through steps, bit-exact; one
+   frame through ``python -m mlic_tpu_torch.tools.test --backend steps``
+   and ``tools.decode``, which reads the backend from the streams
+   (subprocesses), the PNG the encoder's x_hat rounded;
+11. path 9, the serving pipeline (the ``serve_pipeline`` line):
+   ``tools.serve.main`` on the trained MLICPP_S at 512 lanes, 32
+   synthetic frames in batches of 8 with ``--verify`` and containers, then
+   without; on path 1's codec, ``roundtrip_stream`` (two batches in
+   flight) against serial compress + decompress over 4 batches
+   (byte-identical streams, bit-identical x_hat), the host
+   synchronizations of a steady-state ``compress_begin`` (0, by
+   ``torch.cuda.set_sync_debug_mode`` and the profiler), one image of a
+   batch written as a container and decoded alone by ``tools.decode`` to
+   g_s of the encoder's y_hat; img/s of the pipeline and the serial loop over 3
+   alternated rounds, and the card's idle share in a profiled round;
+12. path 3, training (the ``train`` line): MLICPP_S at full width warm-
    started from the trained weights under ``bfloat16_mixed``, Adam,
    lambda 0.0483, mse, batches of 8 random 256x256 crops of a dead-leaves
    pool (``pool_batches``): 3 warm-up steps, 20 timed (median, min, max ms,
@@ -76,11 +100,11 @@
    uninterrupted run's; and one f32 step of MLICPP_S at batch 1, 128x128,
    on the card against the CPU (loss within 1e-4, the gradient's global
    norm within 1e-3, relative);
-11. from training to serving: ``Codec.update`` on the fine-tuned weights and
+13. from training to serving: ``Codec.update`` on the fine-tuned weights and
    one 512-lane request of 8 dead-leaves frames, bit-exact with K1-K4, K6
    and K7 launched; its real bpp beside ``Trainer.evaluate``'s likelihood
    estimate on the same frames;
-12. path 4, variable-bitrate serving (the ``vbr_serve`` line): MLICPP_S_VBR
+14. path 4, variable-bitrate serving (the ``vbr_serve`` line): MLICPP_S_VBR
    under ``bfloat16`` at 512 lanes on the trained MLICPP_S weights
    (``load_matching``: every trained leaf taken, Gain at gain_init, whose
    top level is 1.0), one batch of 8 frames at each of the 6 levels and at
@@ -93,12 +117,15 @@
    with the VBR header; one ``vr_entbttlnck`` + ``quant_offset`` model on
    seeded weights whose level 0 needs wider factorized-prior rows than its
    top level, coded at both (the width ratchet, QuantABCD on the card);
-13. path 5, MGDA training (the ``vbr_train`` line): three steps of
+15. path 5, MGDA training (the ``vbr_train`` line): three steps of
    MLICPP_S_VBR from the trained weights under ``bfloat16_mixed``, batch 8
    of 256x256 crops, all 6 levels a step: ms a step, peak memory, losses
    finite, alpha on the simplex, no kernel launched; one f32 step at 1 x
-   128^2 against the CPU at path 3's tolerances;
-14. path 6, the flagship MLICPP_L (the ``l_path`` line): its trained
+   128^2 against the CPU at path 3's tolerances; then ``tools.rd_vbr``
+   (the ``rd_vbr`` line) on MLICPP_S_VBR from the trained weights, two
+   320x320 frames at every level and one interpolated gain through files,
+   each decoded bit-exactly, the rate monotone in the gain;
+16. path 6, the flagship MLICPP_L (the ``l_path`` line): its trained
    weights read from ``ckpts/bench_default_MLICPP_L`` (the ``weights_L``
    line: 1,215 arrays, stored in bfloat16, widened to f32), loaded strictly,
    under ``bfloat16`` at 512 lanes: ``Codec.update`` and path 1's three
@@ -112,7 +139,11 @@
    ``at_MLICPP_L``); ``evaluate_codec`` over two
    frames under ``bfloat16_mixed`` with the fused tails (K5's launches an
    image from the model) and a profile of one ``decompress_one_image``;
-15. path 7, the small-decoder family at full width on seeded weights (the
+   then path 3 at L's width (the ``train_L`` line): 3 + 5 steps of 8 x
+   256^2 from the trained weights under ``bfloat16_mixed`` (ms a step,
+   peak memory, losses finite, no kernel), a resume whose next loss is
+   exact, one f32 step at 1 x 128^2 against the CPU;
+17. path 7, the small-decoder family at full width on seeded weights (the
    ``sd_path`` line): MLICPP_M_SMALL_DEC, two batches of 8 bit-exact, g_s's
    device time beside L's; MLICPP_M_SMALL_DEC_VBR at its 5 levels and at
    ``inputscale`` 0.3, bit-exact, bpp of the top level above level 0's;
@@ -121,8 +152,12 @@
    ``tools.extract_decoder`` and ``python -m mlic_tpu_torch.tools.decode``
    in a subprocess with the fused tails, whose PNG must hold the encoder
    side's reconstruction, and a profiled in-process decode whose K5
-   launches cover the (320, 320) and (48, 48) tails;
-16. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+   launches cover the (320, 320) and (48, 48) tails; then the
+   frozen-encoder training of MLICPP_M_SMALL_DEC (the
+   ``train_small_decoder_frozen`` line): ``tools.train --freeze`` on g_a
+   and h_a for 3 steps, every frozen leaf bit-equal to the start and every
+   other leaf with a gradient moved;
+18. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 
 Exits non-zero, before printing any result, without CUDA or without the
@@ -223,6 +258,21 @@ SD_MODEL = "MLICPP_M_SMALL_DEC"
 SD_VBR_MODEL = "MLICPP_M_SMALL_DEC_VBR"
 SD_BATCHES = 2
 SD_FILE_LEVEL = 2               # the VBR file of the decoder-only deployment
+# Path 8: the reference's host-coded backends on path 1's model and batch;
+# the VBR level coded through them (gain 0.4 of MLICPP_S_VBR's six).
+VBR_HOST_LEVEL = 3
+# Path 9: the serving CLI's frames (with and without --verify), and the
+# rounds of the pipelined and the serial loop, alternated.
+SERVE_FRAMES, SERVE_ROUNDS = 32, 3
+# rd_vbr on path 4's model: frames and their size (tools/rd_vbr.py's
+# dead-leaves hold-out set, cut from 6 frames).
+RD_VBR_FRAMES, RD_VBR_SIZE = 2, 320
+# Path 3 at the ten-slice width: MLICPP_L's steps; the small decoder's
+# frozen-encoder training through the CLI (g_a and h_a, the reference's
+# mlicpp_small_decoder.py:508-517).
+L_TRAIN_WARMUP, L_TRAIN_STEPS = 3, 5
+SD_FREEZE = r"^\['(g_a|h_a)'\]"
+SD_TRAIN_STEPS = 3
 # the kernels a coded request launches (K1 and K2 run in update only)
 # the keys of a kernel's row at L's shapes that the kernels line carries
 AT_L_KEYS = ("launches", "status", "max_abs_err", "ms", "plain_ms",
@@ -1536,10 +1586,11 @@ def seeded_request(noise_frames) -> None:
                     label="profile_seeded_payload")
 
 
-def _trainer(state, transform_dtype="bfloat16_mixed", device="cuda"):
+def _trainer(state, transform_dtype="bfloat16_mixed", device="cuda",
+             name: str = MODEL):
     from mlic_tpu_torch.models.registry import get_model
     from mlic_tpu_torch.train.trainer import TrainConfig, Trainer
-    model = get_model(MODEL, transform_dtype=transform_dtype)
+    model = get_model(name, transform_dtype=transform_dtype)
     model.load_state_dict(state)
     return Trainer(model, TrainConfig(lmbda=LMBDA, metric="mse",
                                       optimizer="adam", seed=SEED),
@@ -1589,7 +1640,7 @@ def nondeterministic_ops(trainer, batch) -> list:
                    if "deterministic" in str(w.message)})
 
 
-def check_resume(trainer, batches, state) -> dict:
+def check_resume(trainer, batches, state, name: str = MODEL) -> dict:
     """Save the trainer's state with CheckpointManager, restore it into a
     fresh trainer and take the same two steps on both: the first step's
     loss must be equal (its forward reads identical weights), the second's
@@ -1600,7 +1651,7 @@ def check_resume(trainer, batches, state) -> dict:
     with tempfile.TemporaryDirectory() as d:
         mgr = CheckpointManager(d)
         mgr.save(str(trainer.state.step), trainer.state)
-        fresh = _trainer(state)
+        fresh = _trainer(state, name=name)
         mgr.restore(mgr.latest_tag(), fresh.state)
     if fresh.state.step != trainer.state.step:
         raise AssertionError("restored step differs")
@@ -1621,8 +1672,8 @@ def check_resume(trainer, batches, state) -> dict:
     return row
 
 
-def check_cpu_step(state, pool) -> dict:
-    """One f32 training step of MLICPP_S at batch 1, 128x128, on the card
+def check_cpu_step(state, pool, name: str = MODEL) -> dict:
+    """One f32 training step of ``name`` at batch 1, 128x128, on the card
     and on the CPU, with the same noise: loss and the gradient's global
     norm within their relative tolerances (TF32 off on the card)."""
     import torch
@@ -1632,15 +1683,15 @@ def check_cpu_step(state, pool) -> dict:
     b, h, w, _ = CPU_STEP_SHAPE
     x = pool[:b, :h, :w]
     noise = torch.from_numpy(np.random.default_rng(SEED + 10).uniform(
-        -0.5, 0.5, (model_config(MODEL).N, b * (h // 64) * (w // 64))
+        -0.5, 0.5, (model_config(name).N, b * (h // 64) * (w // 64))
     ).astype(np.float32))
     out = {}
     for dev in ("cpu", "cuda"):
-        tr = _trainer(state, "float32", dev)
+        tr = _trainer(state, "float32", dev, name)
         m = train_step(tr.state, x, tr.cfg, noise=noise.to(dev))
         out[dev] = {"loss": float(m["loss"]),
                     "grad_norm": float(m["grad_norm"])}
-    row = {"shape": list(CPU_STEP_SHAPE), **out,
+    row = {"model": name, "shape": list(CPU_STEP_SHAPE), **out,
            "loss_rel_diff": abs(out["cuda"]["loss"] - out["cpu"]["loss"])
            / abs(out["cpu"]["loss"]),
            "grad_norm_rel_diff": abs(out["cuda"]["grad_norm"]
@@ -2077,7 +2128,7 @@ def l_path(frames, pool) -> dict:
     with the fused tails (K5 as many times an image as the model has
     fusable tails in g_a and, twice, in g_s), and a profile of one
     ``decompress_one_image`` there.  Returns the launch counts and g_s's
-    ms and the kernels' rows at L's shapes."""
+    ms, the kernels' rows at L's shapes and the trained state_dict."""
     import torch
 
     from mlic_tpu_torch.codec import Codec
@@ -2158,7 +2209,7 @@ def l_path(frames, pool) -> dict:
     if bad or res["n_images"] != len(images):
         raise AssertionError(f"path 6 eval: {res}")
     return {"serve": counts, "eval": eval_counts, "g_s_ms": g_s_ms,
-            "kernels": kernel_rows}
+            "kernels": kernel_rows, "state": state}
 
 
 def decoder_only(frames) -> dict:
@@ -2323,6 +2374,507 @@ def sd_path(frames, l_g_s_ms: float) -> dict:
     return counts
 
 
+def host_request(codec, x, s: int = 0, inputscale: float = 0.0,
+                 host_s: list | None = None) -> tuple:
+    """One request through a host-coded backend (steps or fused): compress
+    then decompress, y_hat and x_hat bit-exact, finite, the input's shape.
+    ``host_s`` (a one-element list the timing wrappers of
+    ``TimedHostCoder`` add to) splits each direction's host-coder
+    seconds off.  Returns (row, encoded, decoded)."""
+    import torch
+    spent = host_s if host_s is not None else [0.0]
+    torch.cuda.synchronize()
+    spent[0] = 0.0
+    t0 = time.perf_counter()
+    enc = codec.compress(x, s=s, inputscale=inputscale)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    host_enc, spent[0] = spent[0], 0.0
+    dec = codec.decompress(enc["strings"], enc["shape"], s=s,
+                           inputscale=inputscale)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if not (torch.equal(enc["y_hat"], dec["y_hat"])
+            and torch.equal(enc["x_hat"], dec["x_hat"])):
+        n = int((enc["y_hat"] != dec["y_hat"]).sum())
+        raise AssertionError(f"{codec.backend} backend, level {s}, "
+                             f"inputscale {inputscale}: the decoder's y_hat "
+                             f"differs at {n} entries, or its x_hat")
+    if tuple(dec["x_hat"].shape) != tuple(x.shape) \
+            or not bool(torch.isfinite(dec["x_hat"]).all()):
+        raise AssertionError(f"{codec.backend} backend: bad x_hat")
+    n_bytes = sum(len(b) for group in enc["strings"] for b in group)
+    b, h, w = x.shape[:3]
+    row = {"backend": codec.backend, "level": s, "inputscale": inputscale,
+           "bpp": 8.0 * n_bytes / (b * h * w),
+           "z_bytes": sum(len(z) for z in enc["strings"][1]),
+           "encode_ms": (t1 - t0) * 1e3, "decode_ms": (t2 - t1) * 1e3,
+           "encode_host_coder_ms": host_enc * 1e3,
+           "decode_host_coder_ms": spent[0] * 1e3}
+    row["encode_host_share"] = row["encode_host_coder_ms"] / row["encode_ms"]
+    row["decode_host_share"] = row["decode_host_coder_ms"] / row["decode_ms"]
+    return row, enc, dec
+
+
+class TimedHostCoder:
+    """While active, the host rANS coder's entry points that the codec
+    calls add their seconds to ``self.spent[0]``."""
+
+    def __init__(self):
+        from mlic_tpu_torch import codec
+        from mlic_tpu_torch.entropy.rans import coder
+        self.spent = [0.0]
+        self.targets = [(codec, "encode_with_indexes"),
+                        (codec, "decode_with_indexes"),
+                        (coder.RansDecoder, "decode_stream")]
+        self.saved = [getattr(o, n) for o, n in self.targets]
+
+    def __enter__(self):
+        spent = self.spent
+
+        def timed(fn):
+            @functools.wraps(fn)
+            def wrapper(*args, **kw):
+                t = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    spent[0] += time.perf_counter() - t
+            return wrapper
+        for (obj, name), fn in zip(self.targets, self.saved):
+            setattr(obj, name, timed(fn))
+        return self.spent
+
+    def __exit__(self, *exc):
+        for (obj, name), fn in zip(self.targets, self.saved):
+            setattr(obj, name, fn)
+
+
+def host_coded_clis(model, frame) -> dict:
+    """One frame through ``python -m mlic_tpu_torch.tools.test --backend
+    steps`` into a folder, read back by ``tools.decode`` (which tells the
+    streams' kind from the files; both subprocesses on the card, the
+    trained weights): the PNG must equal the encoder's x_hat rounded, and
+    the file the bytes that an in-process steps codec writes for the
+    frame."""
+    from PIL import Image
+
+    from mlic_tpu_torch.codec import Codec
+    from mlic_tpu_torch.eval import compress_one_image
+    common = ["--model", MODEL, "--checkpoint", CHECKPOINT,
+              "--transform-dtype", "bfloat16"]
+    with tempfile.TemporaryDirectory() as d:
+        images, bits, pngs = (os.path.join(d, k)
+                              for k in ("images", "bits", "png"))
+        os.makedirs(images)
+        Image.fromarray(frame).save(os.path.join(images, "frame.png"))
+        secs = {}
+        for name, args in (
+                ("test", ["--dataset", images, "--save-dir", bits,
+                          "--backend", "steps"]),
+                ("decode", ["--bitstream-dir", bits, "--output-dir", pngs])):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", f"mlic_tpu_torch.tools.{name}",
+                 *common, *args], cwd=REPO, capture_output=True, text=True,
+                timeout=600)
+            secs[name] = time.perf_counter() - t0
+            if proc.returncode:
+                raise AssertionError(f"tools.{name} on steps streams failed "
+                                     f"({proc.returncode}): "
+                                     f"{proc.stderr[-3000:]}")
+        path = os.path.join(bits, "img_000.bin")
+        again = os.path.join(d, "again.bin")
+        enc = compress_one_image(Codec(model, device="cuda",
+                                       backend="steps"),
+                                 frame[None].astype(np.float32) / 255.0,
+                                 again)
+        png = np.asarray(Image.open(os.path.join(pngs, "img_000.png")))
+        with open(path, "rb") as f, open(again, "rb") as g:
+            same_file = f.read() == g.read()
+    want = np.clip(enc["x_hat_enc"][0] * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    row = {"frame": list(frame.shape), "bpp": enc["bpp"], "cli_s": secs,
+           "file_equals_in_process": same_file,
+           "png_equals_encoder_x_hat": bool(np.array_equal(png, want))}
+    if not (same_file and row["png_equals_encoder_x_hat"]):
+        raise AssertionError(f"the steps backend's CLIs: {row}")
+    return row
+
+
+def host_coded_path(state, model, frames, dev_codec) -> dict:
+    """Path 8, the reference's codec: the trained MLICPP_S (path 1's model)
+    through ``backend="steps"`` and ``"fused"`` on path 1's first batch,
+    twice (the second timed): each round trip bit-exact, steps and fused
+    byte-identical, both reconstructing path 1's device-backend y_hat and
+    x_hat; no kernel launched, in ``update`` or a request.  bpp beside the
+    v4 stream's, ms a direction and the host coder's share of it, the
+    coder built (``rans_backend``).  Then MLICPP_S_VBR on the trained
+    weights at level VBR_HOST_LEVEL and the seeded ``vr_entbttlnck`` +
+    ``quant_offset`` model at its top level and level 0 through steps, and
+    the two CLIs (``host_coded_clis``).  Returns the launch counts."""
+    import torch
+
+    from mlic_tpu_torch.codec import Codec
+    from mlic_tpu_torch.entropy.rans import coder, rans_backend
+    from mlic_tpu_torch.ops import _build
+    t_path = time.perf_counter()
+    x = frames[0]
+    ref = dev_codec.compress(x)
+    ref_dec = dev_codec.decompress(ref["strings"], ref["shape"])
+    backend = rans_backend()
+    _build.reset_launch_counts()
+    rows, streams = {}, {}
+    with TimedHostCoder() as spent:
+        for name in ("steps", "fused"):
+            codec = Codec(model, device="cuda", backend=name)
+            codec.update()
+            for _ in range(2):
+                row, enc, dec = host_request(codec, x, host_s=spent)
+            row["y_hat_equals_device_backend"] = torch.equal(enc["y_hat"],
+                                                             ref["y_hat"])
+            row["x_hat_equals_device_backend"] = torch.equal(
+                dec["x_hat"], ref_dec["x_hat"])
+            row["y_hat_entries_differing"] = int(
+                (enc["y_hat"] != ref["y_hat"]).sum())
+            rows[name], streams[name] = row, enc["strings"]
+            print(json.dumps({"host_coded_request": row}), flush=True)
+        counts = _build.launch_counts()
+        vmodel, _ = vbr_model(state, "bfloat16")
+        vbr_row = host_request(Codec(vmodel, device="cuda", backend="steps"),
+                               x, VBR_HOST_LEVEL, host_s=spent)[0]
+        del vmodel
+        omodel = seeded_model(VBR_MODEL, "bfloat16", vr_entbttlnck=True,
+                              quant_offset=True)
+        ocodec = Codec(omodel, device="cuda", backend="steps")
+        option_rows = [host_request(ocodec, x[:2], s, host_s=spent)[0]
+                       for s in (len(omodel.cfg.gain_init) - 1, 0)]
+        del omodel, ocodec
+    clis = host_coded_clis(model, x[0])
+    out = {"model": MODEL, "weights": "trained (ckpts/bench_default)",
+           "transform_dtype": "bfloat16", "batch": list(x.shape),
+           "rans_backend": backend,
+           "library": os.path.relpath(coder.library_path(), REPO),
+           "requests": rows, "v4_bpp": stream_stats(dev_codec, ref)["bpp"],
+           "steps_fused_streams_identical": streams["steps"] ==
+           streams["fused"], "launches": counts,
+           "vbr": {"model": VBR_MODEL, **vbr_row},
+           "options": {"model": VBR_MODEL, "weights": "seeded",
+                       "vr_entbttlnck": True, "quant_offset": True,
+                       "requests": option_rows},
+           "clis": clis, "path_s": time.perf_counter() - t_path}
+    print(json.dumps({"host_coded": out}), flush=True)
+    bad = [k for k in ("y_hat_equals_device_backend",
+                       "x_hat_equals_device_backend")
+           for r in rows.values() if not r[k]]
+    if bad or not out["steps_fused_streams_identical"] \
+            or any(counts.values()):
+        raise AssertionError(f"path 8: {bad}, steps and fused identical "
+                             f"{out['steps_fused_streams_identical']}, "
+                             f"launches {counts}")
+    return counts
+
+
+def steady_begin_syncs(codec, x) -> dict:
+    """Host synchronizations of one steady-state ``compress_begin``: the
+    warnings of ``torch.cuda.set_sync_debug_mode("warn")``, and the
+    runtime calls that wait for the device under the profiler
+    (``encode_profile``; its copies are listed apart: the queued copies to
+    pinned memory do not wait).  Both must be 0."""
+    import warnings
+
+    import torch
+    for _ in range(2):
+        codec.compress_end(codec.compress_begin(x))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            h = codec.compress_begin(x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    codec.compress_end(h)
+    prof = encode_profile(codec.compress_begin, x)
+    torch.cuda.synchronize()
+    caught = [w for w in caught if "synchroniz" in str(w.message)
+              and "prototype" not in str(w.message)]
+    waits = [c for c in prof["sync_calls"] if not c.startswith("cudaMemcpy")]
+    out = {"sync_debug_warnings": len(caught),
+           "warnings": [str(w.message)[:160] for w in caught][:5],
+           "waiting_calls": waits,
+           "copies": [c for c in prof["sync_calls"]
+                      if c.startswith("cudaMemcpy")],
+           "kernel_launches": prof["kernel_launches"]}
+    if caught or waits:
+        raise AssertionError(f"compress_begin synchronizes: {out}")
+    return out
+
+
+def pipeline_path(model, codec, frames) -> dict:
+    """Path 9, the serving pipeline: ``tools.serve.main`` on the trained
+    MLICPP_S at 512 lanes, SERVE_FRAMES synthetic frames in batches of 8
+    with ``--verify`` and containers, then the same frames without
+    (K1 and K2 in ``update``, K7, K3, K6 and K4 launched); on path 1's
+    codec, ``roundtrip_stream`` over 4 batches against serial ``compress``
+    + ``decompress`` (byte-identical streams, bit-identical x_hat), the
+    host synchronizations of a steady-state ``compress_begin`` (0), one
+    image of a batch written as a container and decoded alone by
+    ``tools.decode`` (its x_hat g_s of the encoder's y_hat for the image,
+    bit for bit); img/s of the pipeline and
+    of the serial loop alternated over SERVE_ROUNDS rounds, and the
+    card's idle share: one profiled pipelined round's device busy time
+    against the unprofiled median.  Returns the launch
+    counts of the CLI runs."""
+    import torch
+
+    from mlic_tpu_torch.ops import _build
+    from mlic_tpu_torch.tools import decode, serve
+    t_path = time.perf_counter()
+    common = ["--checkpoint", CHECKPOINT, "--transform-dtype", "bfloat16",
+              "--synthetic", "--batch", str(BATCH), "--lanes", str(N_LANES)]
+    _build.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as d:
+        verified = serve.main(common + ["--n", str(SERVE_FRAMES), "--verify",
+                                        "--out", d])
+        n_files = len(os.listdir(d))
+    plain = serve.main(common + ["--n", str(SERVE_FRAMES)])
+    counts = _build.launch_counts()
+    missing = [k for k in ("select_rows", "eval_cdf") + REQUEST_KERNELS
+               if not counts[k]]
+    if missing or n_files != SERVE_FRAMES:
+        raise AssertionError(f"path 9: serve CLI launched no {missing}, "
+                             f"wrote {n_files} containers")
+
+    batches = [frames[0], frames[1],
+               np.ascontiguousarray(frames[0][:, :, ::-1]),
+               np.ascontiguousarray(frames[1][:, ::-1])]
+    serial = []
+    for x in batches:
+        enc = codec.compress(x)
+        serial.append((enc, codec.decompress(enc["strings"], enc["shape"])))
+    piped = list(codec.roundtrip_stream(batches))
+    same = [g[0]["strings"] == w[0]["strings"]
+            and torch.equal(g[1]["x_hat"], w[1]["x_hat"])
+            and torch.equal(g[1]["x_hat"], g[0]["x_hat"])
+            for g, w in zip(piped, serial)]
+    syncs = steady_begin_syncs(codec, frames[1])
+
+    enc = serial[0][0]
+    with tempfile.TemporaryDirectory() as d:
+        bits = os.path.join(d, "bits")
+        serve._write(bits, ["frame"], 0, 1, enc, (HEIGHT, WIDTH))
+        got = decode.main(["--model", MODEL, "--checkpoint", CHECKPOINT,
+                           "--transform-dtype", "bfloat16",
+                           "--bitstream-dir", bits,
+                           "--output-dir", os.path.join(d, "png")])
+    # The decoder's y_hat is the encoder's bit for bit, so its x_hat is
+    # g_s of the encoder's y_hat at batch 1; g_s (bf16) of the batch of 8
+    # rounds other bits, reported beside.
+    single = torch.from_numpy(got["frame.bin"][0]).cuda()
+    want = model.synthesize(enc["y_hat"][:1])[0]
+    container_diff = int((single != want).sum())
+    batch_x_hat_diff = float((single - enc["x_hat"][0]).abs().max())
+    del serial, piped, enc
+
+    def run_serial():
+        for x in batches:
+            e = codec.compress(x)
+            codec.decompress(e["strings"], e["shape"])
+
+    def run_pipeline():
+        for _ in codec.roundtrip_stream(batches):
+            pass
+
+    img_s = {"pipeline": [], "serial": []}
+    for r in range(SERVE_ROUNDS):
+        order = (("pipeline", run_pipeline), ("serial", run_serial))
+        for name, fn in (order if r % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            img_s[name].append(len(batches) * BATCH
+                               / (time.perf_counter() - t0))
+    prof = kernels_in(run_pipeline)
+    wall = len(batches) * BATCH / float(np.median(img_s["pipeline"])) * 1e3
+    out = {"model": MODEL, "weights": "trained (ckpts/bench_default)",
+           "transform_dtype": "bfloat16", "lanes": N_LANES,
+           "serve_cli_verify": verified, "serve_cli": plain,
+           "containers": n_files, "launches": counts,
+           "roundtrip_stream_equals_serial": same,
+           "begin_syncs": syncs,
+           "container_decode_x_hat_entries_differing": container_diff,
+           "container_x_hat_max_abs_diff_to_batch_x_hat": batch_x_hat_diff,
+           "img_s": {k: {"median": float(np.median(v)), "all": v}
+                     for k, v in img_s.items()},
+           "profiled_pipeline_round": {
+               "unprofiled_median_wall_ms": wall,
+               "device_busy_ms": prof["device_busy_ms"],
+               "idle_share": 1.0 - prof["device_busy_ms"] / wall,
+               "port_kernels_ms_launches": prof["port_kernels_ms_launches"]},
+           "path_s": time.perf_counter() - t_path}
+    print(json.dumps({"serve_pipeline": out}), flush=True)
+    if not all(same) or container_diff:
+        raise AssertionError(f"path 9: pipeline equal to serial {same}, "
+                             f"container decode differs at "
+                             f"{container_diff} entries")
+    return counts
+
+
+def rd_vbr_path() -> dict:
+    """``tools.rd_vbr`` on path 4's MLICPP_S_VBR (the trained MLICPP_S
+    through ``load_matching``) under ``bfloat16``: RD_VBR_FRAMES frames
+    of RD_VBR_SIZE^2, every level and one interpolated gain through files
+    (each decoded bit-exactly by ``evaluate_codec``); the tool raises
+    unless the rate is monotone in the gain.  Returns the launch counts."""
+    from mlic_tpu_torch.ops import _build
+    from mlic_tpu_torch.tools import rd_vbr
+    t0 = time.perf_counter()
+    _build.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as d:
+        curve = rd_vbr.main([
+            "--model", VBR_MODEL, "--checkpoint", CHECKPOINT,
+            "--out", os.path.join(d, "rd_vbr.json"),
+            "--n-images", str(RD_VBR_FRAMES),
+            "--image-size", str(RD_VBR_SIZE), "--interp", "1",
+            "--transform-dtype", "bfloat16",
+            "--save-dir", os.path.join(d, "eval")])
+    counts = _build.launch_counts()
+    out = {k: curve[k] for k in ("bpp", "psnr", "gain", "kind",
+                                 "monotone_rate", "monotone_psnr",
+                                 "backend")}
+    out.update(launches=counts, path_s=time.perf_counter() - t0)
+    print(json.dumps({"rd_vbr": out}), flush=True)
+    from mlic_tpu_torch.models.config import model_config
+    n_levels = len(model_config(VBR_MODEL).gain_init)
+    if len(curve["bpp"]) != n_levels + 1 or not curve["monotone_rate"] \
+            or not all(counts[k] for k in REQUEST_KERNELS):
+        raise AssertionError(f"rd_vbr: {out}")
+    return counts
+
+
+def l_train_path(state) -> dict:
+    """Path 3 at the ten-slice width: MLICPP_L from its trained weights
+    under ``bfloat16_mixed``, Adam, lambda 0.0483, batches of 8 random
+    256x256 dead-leaves crops: L_TRAIN_WARMUP steps, L_TRAIN_STEPS timed
+    (ms, peak memory), losses finite, no kernel launched; a resume whose
+    next loss is exact; one f32 step at 1 x 128^2 against the CPU.
+    Returns the launch counts."""
+    import torch
+
+    from mlic_tpu_torch.data.folder import dead_leaves_pool, pool_batches
+    from mlic_tpu_torch.ops import _build
+    from mlic_tpu_torch.train.trainer import train_step
+    t_path = time.perf_counter()
+    pool = dead_leaves_pool(TRAIN_POOL, TRAIN_POOL_SIZE, SEED + 9,
+                            cache_dir="")
+    n = L_TRAIN_WARMUP + L_TRAIN_STEPS
+    batches = list(pool_batches(pool, TRAIN_BATCH, TRAIN_PATCH, n + 2,
+                                seed=SEED + 1))
+    with torch.enable_grad():
+        _build.reset_launch_counts()
+        tr = _trainer(state, name=L_MODEL)
+        torch.cuda.reset_peak_memory_stats()
+        ms, metrics = [], []
+        for b in batches[:n]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics.append(_floats(train_step(tr.state, b, tr.cfg)))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        counts = _build.launch_counts()
+        timed = ms[L_TRAIN_WARMUP:]
+        row = {"model": L_MODEL,
+               "weights": "trained (ckpts/bench_default_MLICPP_L)",
+               "transform_dtype": "bfloat16_mixed", "optimizer": "adam",
+               "lambda": LMBDA, "metric": "mse",
+               "batch": [TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH, 3],
+               "warmup_steps": L_TRAIN_WARMUP, "timed_steps": L_TRAIN_STEPS,
+               "step_ms": {"median": float(np.median(timed)),
+                           "min": min(timed), "max": max(timed)},
+               "first_step_ms": ms[0], "peak_mem_gib": peak,
+               "losses": [m["loss"] for m in metrics], "launches": counts}
+        finite = all(np.isfinite(v) for m in metrics for v in m.values())
+        if not finite or any(counts.values()):
+            print(json.dumps({"train_L": row}), flush=True)
+            raise AssertionError(f"MLICPP_L training: finite {finite}, "
+                                 f"launches {counts}")
+        row["resume"] = check_resume(tr, batches[n:n + 2], state, L_MODEL)
+        del tr
+        row["cpu_step"] = check_cpu_step(state, pool, L_MODEL)
+    row["path_s"] = time.perf_counter() - t_path
+    print(json.dumps({"train_L": row}), flush=True)
+    return counts
+
+
+def sd_freeze_path() -> dict:
+    """MLICPP_M_SMALL_DEC through ``tools.train --freeze`` (its encoder,
+    g_a and h_a, the reference's ``mlicpp_small_decoder.py:508-517``
+    pattern) for SD_TRAIN_STEPS steps of 8 x 256^2 dead-leaves crops on
+    the card, from the CLI's seeded weights: every frozen leaf bit-equal
+    to the start, every other leaf with a nonzero gradient in one step
+    from the start (a step taken here, on the CLI's first batch) moved.
+    Returns the launch counts."""
+    import torch
+
+    from mlic_tpu_torch.data.folder import dead_leaves_pool, pool_batches
+    from mlic_tpu_torch.ops import _build
+    from mlic_tpu_torch.tools import train as train_cli
+    from mlic_tpu_torch.train.optimizers import frozen_names
+    from mlic_tpu_torch.train.trainer import (
+        TrainConfig,
+        create_train_state,
+        train_step,
+    )
+    t_path = time.perf_counter()
+    start = {k: v.clone() for k, v in
+             seeded_model(SD_MODEL, "bfloat16_mixed").state_dict().items()}
+    _build.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as d, torch.enable_grad():
+        last = train_cli.main([
+            "--model", SD_MODEL, "--synthetic", "--synthetic-kind",
+            "dead_leaves", "--pool-size", str(TRAIN_POOL),
+            "--pool-image-size", str(TRAIN_POOL_SIZE), "--steps",
+            str(SD_TRAIN_STEPS), "--batch-size", str(TRAIN_BATCH),
+            "--patch-size", str(TRAIN_PATCH), "--freeze", SD_FREEZE,
+            "--ckpt-dir", d, "--log-freq", "1"])
+        end = torch.load(os.path.join(d, "mlic_tpu_torch",
+                                      f"checkpoint_{SD_TRAIN_STEPS}.pt"),
+                         map_location="cpu", weights_only=True)["model"]
+    counts = _build.launch_counts()
+    cli_s = time.perf_counter() - t_path
+    model = seeded_model(SD_MODEL, "bfloat16_mixed")
+    frozen = frozen_names(model, SD_FREEZE)
+    cfg = TrainConfig(lmbda=LMBDA, metric="mse", optimizer="adam", seed=SEED)
+    batch = next(pool_batches(dead_leaves_pool(TRAIN_POOL, TRAIN_POOL_SIZE,
+                                               SEED),
+                              TRAIN_BATCH, TRAIN_PATCH, 1, seed=SEED + 1))
+    with torch.enable_grad():
+        st = create_train_state(model, cfg, "cuda", SD_FREEZE)
+        train_step(st, batch, cfg)
+        with_grad = {k for k, p in model.named_parameters()
+                     if p.grad is not None and bool(torch.any(p.grad))}
+    del st, model
+    params = [k for k in start if k in with_grad or k in frozen]
+    frozen_changed = [k for k in frozen if not torch.equal(end[k], start[k])]
+    unmoved = [k for k in with_grad - frozen
+               if torch.equal(end[k], start[k])]
+    row = {"model": SD_MODEL, "weights": "seeded (the CLI's --seed 0)",
+           "freeze": SD_FREEZE, "steps": SD_TRAIN_STEPS,
+           "last": last, "cli_s": cli_s, "frozen_leaves": len(frozen),
+           "frozen_changed": frozen_changed,
+           "leaves_with_gradient": len(with_grad - frozen),
+           "leaves_with_gradient_unmoved": unmoved,
+           "leaves_checked": len(params), "launches": counts,
+           "path_s": time.perf_counter() - t_path}
+    print(json.dumps({"train_small_decoder_frozen": row}), flush=True)
+    if not frozen or frozen_changed or unmoved \
+            or not np.isfinite(last["loss"]) or any(counts.values()):
+        raise AssertionError(f"frozen-encoder training: {row}")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2337,6 +2889,9 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     os.environ.pop(FUSED_SWITCH, None)      # path 1 runs the unfused tails
+    # the CLIs' dead-leaves pools render once into a directory of this run
+    pool_cache = tempfile.TemporaryDirectory()
+    os.environ["MLIC_POOL_CACHE"] = pool_cache.name
     t0 = time.perf_counter()
     per = _build.build()
     print(json.dumps({"build_s": time.perf_counter() - t0,
@@ -2381,13 +2936,18 @@ def main() -> int:
     check_decode_lanes(codec)
     check_lane_widths(model, frames)
     check_small_reference(state)
+    host_counts = host_coded_path(state, model, frames, codec)
+    pipe_counts = pipeline_path(model, codec, frames)
     trainer, train_counts = train_path(state)
     after = serve_after_training(trainer, frames[0])
     del trainer
     vbr_counts, vbr_profiles = vbr_serve_path(state, frames, codec)
     vbr_train_counts = vbr_train_path(state)
+    rd_counts = rd_vbr_path()
     l_counts = l_path(frames, pool)
+    l_train_counts = l_train_path(l_counts.pop("state"))
     sd_counts = sd_path(frames, l_counts["g_s_ms"])
+    sd_train_counts = sd_freeze_path()
     for k in kernels:
         k["launches_by_path"] = {"serve": counts[k["name"]],
                                  "eval": eval_counts[k["name"]],
@@ -2397,7 +2957,13 @@ def main() -> int:
                                  "vbr_train": vbr_train_counts[k["name"]],
                                  "l_serve": l_counts["serve"][k["name"]],
                                  "l_eval": l_counts["eval"][k["name"]],
-                                 "small_decoder": sd_counts[k["name"]]}
+                                 "small_decoder": sd_counts[k["name"]],
+                                 "host_coded": host_counts[k["name"]],
+                                 "serve_pipeline": pipe_counts[k["name"]],
+                                 "rd_vbr": rd_counts[k["name"]],
+                                 "train_L": l_train_counts[k["name"]],
+                                 "train_small_decoder_frozen":
+                                     sd_train_counts[k["name"]]}
         at_l = [r for r in l_counts["kernels"] if r["name"] == k["name"]]
         if at_l:
             k["at_MLICPP_L"] = {key: at_l[0][key] for key in AT_L_KEYS
@@ -2406,6 +2972,8 @@ def main() -> int:
             f"level_{s}": sum(p[ph]["port_kernels_ms_launches"][k["name"]][0]
                               for ph in ("compress", "decompress"))
             for s, p in vbr_profiles.items()}
+    pool_cache.cleanup()
+    os.environ.pop("MLIC_POOL_CACHE")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

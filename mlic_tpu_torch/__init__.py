@@ -1,10 +1,13 @@
-"""MLIC++ in PyTorch for one NVIDIA H100: the device-codec serving path and
-the file-based evaluation path.
+"""MLIC++ in PyTorch for one NVIDIA H100: serving, evaluation and training.
 
-A port of the ``device`` backend of ``mlic_tpu`` (stream format v4:
+A port of ``mlic_tpu``'s codec -- its ``device`` backend (stream format v4:
 analyze -> context encode pass -> interleaved rANS encode, and the matching
-on-device decode) and of its evaluation harness (``eval.evaluate_codec``,
-``python -m mlic_tpu_torch.tools.test``) to PyTorch, with hand-written CUDA
+on-device decode; the two-deep serving pipeline and
+``python -m mlic_tpu_torch.tools.serve``) and its ``steps`` and ``fused``
+backends (the reference's streams, coded on the host by the port's rANS
+coder, ``entropy/rans``) -- of its evaluation harness
+(``eval.evaluate_codec``, ``python -m mlic_tpu_torch.tools.test``,
+``tools.rd_vbr``) and of its training path to PyTorch, with hand-written CUDA
 kernels for the row select, the analytic CDF evaluator, the two rANS scans
 and the fused residual-block tail of g_a and g_s (``mlic_tpu_torch/csrc``;
 the last is selected by ``MLIC_FUSED_BLOCKS=1``).  Every kernel has a plain

@@ -1,23 +1,51 @@
-"""The codec: the device backend of ``mlic_tpu/codec.py``, format v4.
+"""The codec: the three backends of ``mlic_tpu/codec.py``.
 
+``backend="device"`` (the port's default; the JAX package defaults to
+``"steps"``) codes format v4 with both rANS directions on the device:
 ``compress`` runs analyze, the encode pass and the on-device rANS encode
 (its prep, K7: z section by integer-row gathers, y phases by the analytic
-Gaussian CDF), then assembles one stream per image.  ``decompress`` parses the streams
-and runs the format-v4 device decode.  Both rANS directions run on the
-device; the host only parses and assembles bytes.
+Gaussian CDF; K3; K6), then assembles one stream per image;
+``decompress`` parses the streams and runs the format-v4 device decode
+(K4).  The host only parses and assembles bytes.  ``compress`` is
+``compress_end(compress_begin(x))``: the first half queues the device work
+and the copy of the streams to pinned host memory with no host
+synchronization, the second waits for that copy and assembles, so a serving
+loop keeps two batches in flight (``roundtrip_stream``).
 
-``update`` builds the tables: the Gaussian row parameters, the integer
-table generated from them on the codec's device, and the factorized
-prior's rows, combined so one stream carries z and y.  The table must be
-rANS-valid and pass the decode- and encode-shaped self-checks, else
-``update`` raises with the count of entries that differ -- there is no
-host-table fallback.
+``backend="steps"`` and ``"fused"`` code as the reference does
+(``compress``/``decompress`` of ``MLIC++/models/mlicpp.py``): z with the
+factorized prior's tables and y with the Gaussian tables, on the host,
+through the port's rANS coder (``entropy/rans``), one compressai-format y
+string and one z string per image.  Each checkerboard phase crosses to the
+host and back: its scale indexes go down, and its symbols go down (encode)
+or come up decoded (decode).  Both names run ``codec_pass``, the model's
+step methods (``codec_begin``, ``codec_step_anchor``,
+``codec_step_nonanchor``, ``codec_finish``) with the exchange as a Python
+callable: the JAX package's split between one compiled program (``fused``)
+and one program a step (``steps``) has no counterpart in eager PyTorch, so
+``fused`` is kept as a name only.  The step methods run the phase helpers
+of the device path's slice loop, so every backend computes the same y_hat.
+
+The backend chooses how ``compress`` codes; ``decompress`` reads either
+kind of stream whatever the codec's backend: a format-v4 stream carries
+its z in the y stream and an empty z string, the reference's a z string
+of its own.
+
+``update`` builds the tables: for every backend the Gaussian tables
+(``GaussianConditionalTables``) and the factorized prior's; for the device
+backend (or on the first format-v4 stream a host-coded codec decodes) also
+the Gaussian row parameters, the integer table generated from them on the
+codec's device, and the combined rows, so one stream carries z and y.
+That table must be rANS-valid and pass the decode- and encode-shaped
+self-checks, else ``update`` raises with the count of entries that differ
+-- there is no host-table fallback.
 
 Variable-bitrate models code at a gain level ``s`` (or a continuous
 ``inputscale``): the gain scales the symbols and the rows on the device,
 and under a variable-rate bottleneck the level's z step selects
 factorized-prior rows built for that step, cached per step.  All cached
-steps share one row width, ratcheted up when a step needs wider rows.
+device steps share one row width, ratcheted up when a step needs wider
+rows.
 """
 
 from __future__ import annotations
@@ -37,9 +65,17 @@ from mlic_tpu_torch.entropy.device_rans import (
     rans_encode_prep,
     rans_encode_scan,
 )
-from mlic_tpu_torch.entropy.models import entropy_bottleneck_tables
+from mlic_tpu_torch.entropy.models import (
+    GaussianConditionalTables,
+    entropy_bottleneck_tables,
+)
+from mlic_tpu_torch.entropy.rans import (
+    RansDecoder,
+    decode_with_indexes,
+    encode_with_indexes,
+)
 from mlic_tpu_torch.entropy.stream import (
-    assemble_streams,
+    pack_streams,
     parse_global,
     stream_is_unified,
     stream_lanes,
@@ -88,18 +124,73 @@ def encode_rans_v4(sym32, idx, z_flat, tables: dict, n_lanes: int,
                                n_lanes, n_phases)
 
 
+BACKENDS = ("steps", "fused", "device")
+
+
+def _download_bucket(n: int, minimum: int = 1 << 12) -> int:
+    """Length of the speculative stream download (codec.py:60): ``n`` with
+    3% headroom, rounded up to a sixteenth of its power of two."""
+    n = max(int(n * 1.03), minimum)
+    step = (1 << (n - 1).bit_length()) >> 4
+    return -(-n // step) * step
+
+
+class _ExchangeState:
+    """The host side of the host-coded backends' per-phase exchange
+    (codec.py:227): in ``encode`` mode it keeps each phase's candidate
+    symbols and indexes and hands the candidates back; in ``decode`` mode
+    it decodes each image's phase from that image's stream and hands the
+    symbols back.  Arrays are [B, n]; each image owns its stream."""
+
+    def __init__(self):
+        self.mode = "idle"
+        self.chunks: list = []          # (symbols, indexes) [B, n] a phase
+        self.decoders: list = []        # one RansDecoder an image
+        self.tables = None              # (cdfs, lengths, offsets)
+
+    def exchange(self, tag: str, indexes, candidate):
+        """One phase: ``indexes`` uint8 and ``candidate`` int32 (None when
+        decoding) device tensors [B, n] -> the phase's symbols, int32 on
+        the same device.  One download a phase either way; decoding adds
+        the upload of the symbols."""
+        if self.mode == "encode":
+            both = torch.stack([candidate, indexes.to(torch.int32)]).cpu()
+            self.chunks.append(tuple(both.numpy()))
+            return candidate
+        if self.mode == "decode":
+            idx = indexes.cpu().numpy().astype(np.int32)
+            sym = np.stack([dec.decode_stream(idx[b], *self.tables)
+                            for b, dec in enumerate(self.decoders)])
+            return torch.from_numpy(sym).to(indexes.device)
+        raise RuntimeError(f"exchange called in mode {self.mode!r} "
+                           f"(tag {tag})")
+
+
 class Codec:
     """compress()/decompress() around an ``MLICPlusPlus`` with weights.
 
-    ``n_lanes``: rANS lanes per image, a power of two <= 1024 (the stream
+    ``backend``: ``"device"`` (format v4, both rANS directions on the
+    device; the port's default), ``"steps"`` or ``"fused"`` (the
+    reference's host-coded streams; the JAX package's default is
+    ``"steps"``); it chooses how ``compress`` codes, and ``decompress``
+    reads the streams of every backend.  ``n_lanes``: rANS lanes per
+    image of the device backend, a power of two <= 1024 (the stream
     header carries it), or ``"auto"`` (the reference's default): resolved
     once, from the first compressed image's size by ``auto_lanes`` or, for
     a codec that decodes first, from the first stream's header.  Serving
-    passes an explicit 512.  ``device``: None means CUDA."""
+    passes an explicit 512.  ``encode_recon=False`` drops the encode-side synthesis (``x_hat``
+    is then None in ``compress``'s result).  ``device``: None means
+    CUDA."""
 
     def __init__(self, model: MLICPlusPlus, n_lanes: int | str = "auto",
-                 device=None):
+                 device=None, backend: str = "device",
+                 encode_recon: bool = True):
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}: one of "
+                             f"{BACKENDS}")
         self.device = resolve_device(device)
+        self.backend = backend
+        self.encode_recon = encode_recon
         self.n_lanes = None
         if n_lanes != "auto":
             nl = int(n_lanes)
@@ -110,21 +201,40 @@ class Codec:
         self._auto_resolved = False
         self._warned_auto_width = False
         self.model = model.to(self.device).eval()
-        self.tables = None
+        self._gc = None             # GaussianConditionalTables
+        self._x = _ExchangeState()
+        self.tables = None          # the device backend's combined tables
         self.n_steps = 0
         self.z_rows_base = 0
         self.z_steps_row = 0
+        self._scale_table = None
         self._gauss = None          # (row params, lengths, offsets, table)
         self._width = 0             # the combined rows' width, ratcheted
         self._by_step = {}          # z step -> combined device tables
         self._eb_cache = {}         # z step -> factorized-prior tables
         self._zqs_cache = {}        # (s, inputscale) -> z step
+        self._words_bucket = 0      # speculative download lengths,
+        self._esc_bucket = 0        # ratcheted (compress_end)
 
     @torch.no_grad()
     def update(self, scale_table: np.ndarray | None = None) -> None:
-        """Build and check the tables (codec.py:419, 519, 440)."""
+        """Build the tables (codec.py:419): the Gaussian and factorized
+        prior's host tables for every backend; for the device backend the
+        checked parametric table and the combined device tables (codec.py:
+        519, 440)."""
         st = get_scale_table() if scale_table is None else scale_table
-        params, lengths, offsets = parametric.gaussian_row_params(st)
+        self._gc = GaussianConditionalTables.create(st)
+        self._x.tables = (self._gc.quantized_cdf, self._gc.cdf_length,
+                          self._gc.offset)
+        self._eb_cache, self._zqs_cache = {}, {}
+        self._scale_table, self._gauss = st, None
+        if self.backend == "device":
+            self._update_device()
+
+    def _update_device(self) -> None:
+        """The device tables of format v4 at ``update``'s scale table."""
+        params, lengths, offsets = parametric.gaussian_row_params(
+            self._scale_table)
         params_t = torch.as_tensor(params, device=self.device)
         table = parametric.generate_tables(params_t, lengths)
         checks = {
@@ -141,10 +251,14 @@ class Codec:
                                "differ")
         self._gauss = (params, lengths, offsets, table)
         self._width = 0
-        self._by_step, self._eb_cache, self._zqs_cache = {}, {}, {}
+        self._by_step = {}
         self.n_steps = parametric.bisect_steps(lengths)
         self.z_rows_base = table.shape[0]
         self.tables = self._tables_for(1.0)
+
+    def _require_tables(self) -> None:
+        if self._gc is None:
+            self.update()
 
     def _eb_for(self, z_qs: float):
         """The factorized prior's tables at step ``z_qs``, cached
@@ -224,7 +338,7 @@ class Codec:
                 f"Codec resolved n_lanes={self.n_lanes} from its first "
                 f"image, but a {h}x{w} image would pick {want}; the lane "
                 "count is fixed per codec: construct a separate Codec for "
-                "large images to keep decode scans short.", stacklevel=3)
+                "large images to keep decode scans short.", stacklevel=4)
             self._warned_auto_width = True
 
     def _stage(self, timings, name: str, t: float) -> float:
@@ -232,12 +346,36 @@ class Codec:
         since ``t`` under ``name``; returns the start of the next stage."""
         if timings is None:
             return t
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._sync()
         now = time.perf_counter()
         timings[name] = (now - t) * 1e3
         return now
 
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _to_device(self, a) -> torch.Tensor:
+        """A host array or tensor on the codec's device; from the host
+        through pinned memory with a copy that does not wait for the
+        device's queue."""
+        t = torch.as_tensor(a)
+        if self.device.type == "cuda" and t.device.type == "cpu":
+            return t.contiguous().pin_memory().to(self.device,
+                                                  non_blocking=True)
+        return t.to(self.device)
+
+    def _images(self, x) -> torch.Tensor:
+        """x: [B,H,W,3] uint8 or float, H and W multiples of 64, on the
+        device; float images as f32."""
+        x = self._to_device(x)
+        if x.dim() != 4 or x.shape[3] != 3 or x.shape[1] % 64 \
+                or x.shape[2] % 64:
+            raise ValueError(f"compress takes [B, H, W, 3] images with H and "
+                             f"W multiples of 64, got {tuple(x.shape)}")
+        return x if x.dtype == torch.uint8 else x.float()
+
+    # ------------------------------------------------------------------
     @torch.no_grad()
     def compress(self, x, s: int = 0, inputscale: float = 0.0,
                  timings: dict | None = None) -> dict:
@@ -245,24 +383,42 @@ class Codec:
         a VBR model codes at level ``s``, or at ``inputscale`` where it is
         > 0 (a fixed-rate model ignores both).  Returns {"strings":
         [y_strings, z_strings], "shape": (h/4... z dims), "y_hat":
-        [B,h,w,M], "x_hat": [B,H,W,3], "cost_time": s}; the z strings are
-        empty in format v4 (z travels in the y stream) and x_hat is the
-        encode-side reconstruction g_s(y_hat), which ``decompress`` must
-        reproduce bit for bit (``mlic_tpu/codec.py:971``).  A ``timings``
-        dict receives the host-clock ms of each stage, each ended by a
+        [B,h,w,M], "x_hat": [B,H,W,3], "cost_time": s}: one string of each
+        per image; the device backend's z strings are empty (format v4
+        carries z in the y stream).  x_hat is the encode-side
+        reconstruction g_s(y_hat), which ``decompress`` must reproduce bit
+        for bit (``mlic_tpu/codec.py:971``).  A ``timings`` dict receives
+        the device backend's host-clock ms of each stage, each ended by a
         device synchronize: analyze, encode_pass, rans_encode, assemble,
         synthesize."""
         t0 = time.perf_counter()
-        if self.tables is None:
-            self.update()
+        if self.backend == "device":
+            out = self.compress_end(self.compress_begin(x, s, inputscale,
+                                                        timings), timings)
+        else:
+            out = self._compress_host_coded(x, s, inputscale)
+        self._sync()
+        out["cost_time"] = time.perf_counter() - t0
+        return out
+
+    @torch.no_grad()
+    def compress_begin(self, x, s: int = 0, inputscale: float = 0.0,
+                       timings: dict | None = None) -> dict:
+        """The device half of a device-backend ``compress``
+        (codec.py:789): uploads the batch and queues analyze, the encode
+        pass, the rANS encode and the copy of its counts and speculative
+        word and escape prefixes to pinned host memory, with no host
+        synchronization once the tables and the level's z step exist.
+        Returns the handle ``compress_end`` takes.  A later batch's
+        ``compress_begin`` may come before this one's ``compress_end``:
+        the device runs the two in the order they were queued."""
+        if self.backend != "device":
+            raise ValueError("compress_begin/compress_end split the device "
+                             f"backend; this codec is {self.backend!r}")
+        t0 = time.perf_counter()
+        self._require_tables()
         t = time.perf_counter()
-        x = torch.as_tensor(x).to(self.device)
-        if x.dim() != 4 or x.shape[3] != 3 or x.shape[1] % 64 \
-                or x.shape[2] % 64:
-            raise ValueError(f"compress takes [B, H, W, 3] images with H and "
-                             f"W multiples of 64, got {tuple(x.shape)}")
-        if x.dtype != torch.uint8:
-            x = x.float()
+        x = self._images(x)
         if self.n_lanes is None:
             self._resolve_lanes(auto_lanes(self.model.cfg, x.shape[1],
                                            x.shape[2]))
@@ -280,34 +436,134 @@ class Codec:
         comp = encode_rans_v4(sym32, idx, z_symbols.reshape(b, -1),
                               tables, self.n_lanes,
                               2 * self.model.cfg.slice_num, self.z_rows_base)
-        t = self._stage(timings, "rans_encode", t)
-        streams = assemble_streams(comp, self.n_lanes)
-        t = self._stage(timings, "assemble", t)
-        x_hat = self.model.synthesize(y_hat)
-        self._stage(timings, "synthesize", t)
+        parts = [torch.cat([comp["img_n"], comp["ecount"]]),
+                 comp["buf"][:self._words_bucket],
+                 comp["ebuf"][:self._esc_bucket]]
+        done = None
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return {"strings": [streams, [b""] * b], "shape": (zh, zw),
-                "y_hat": y_hat, "x_hat": x_hat,
-                "cost_time": time.perf_counter() - t0}
+            host = [torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+                    for p in parts]
+            for h, p in zip(host, parts):
+                h.copy_(p, non_blocking=True)
+            parts = host
+            done = torch.cuda.Event()
+            done.record()
+        self._stage(timings, "rans_encode", t)
+        return {"comp": comp, "host": parts, "done": done, "y_hat": y_hat,
+                "shape": (zh, zw), "t0": t0}
 
     @torch.no_grad()
+    def compress_end(self, h: dict, timings: dict | None = None) -> dict:
+        """The host half (codec.py:844): waits for ``compress_begin``'s
+        copy, fetches the rest of the words or escapes where a stream
+        outgrew the speculative prefix (which then grows, so a session
+        does so a few times), assembles the format-v4 streams and queues
+        the encode-side synthesis.  Returns ``compress``'s result;
+        ``x_hat`` may still be in flight."""
+        t = time.perf_counter()
+        if h["done"] is not None:
+            h["done"].synchronize()
+        counts, buf, ebuf = (p.numpy() for p in h["host"])
+        img_n, ecount = np.split(counts.astype(np.int64), 2)
+        n_w, n_e = int(img_n.sum()), int(ecount.sum())
+        comp = h["comp"]
+        if n_w > len(buf):
+            buf = comp["buf"][:n_w].cpu().numpy()
+        if n_e > len(ebuf):
+            ebuf = comp["ebuf"][:n_e].cpu().numpy()
+        self._words_bucket = max(self._words_bucket, min(
+            _download_bucket(n_w), comp["buf"].numel()))
+        self._esc_bucket = max(self._esc_bucket, min(
+            _download_bucket(n_e, 1024), comp["ebuf"].numel()))
+        streams = pack_streams(img_n, ecount, buf[:n_w].view(np.uint16),
+                               ebuf[:n_e], self.n_lanes)
+        t = self._stage(timings, "assemble", t)
+        y_hat = h["y_hat"]
+        x_hat = self.model.synthesize(y_hat) if self.encode_recon else None
+        self._stage(timings, "synthesize", t)
+        return {"strings": [streams, [b""] * len(streams)],
+                "shape": h["shape"], "y_hat": y_hat, "x_hat": x_hat,
+                "cost_time": time.perf_counter() - h["t0"]}
+
+    def _compress_host_coded(self, x, s: int, inputscale: float) -> dict:
+        """The steps and fused backends' compress (codec.py:933-973): z and
+        then y coded on the host, one stream of each per image."""
+        self._require_tables()
+        x = self._images(x)
+        scale = self._scale_for(s, inputscale)
+        z_qs = self._z_qs_for(s, inputscale)
+        y, z_symbols = self.model.analyze(x, z_qs)
+        z_np = z_symbols.cpu().numpy()
+        z_strings = self._encode_z(z_np, z_qs)
+        self._x.mode, self._x.chunks = "encode", []
+        try:
+            y_hat = self.model.codec_pass(y, z_symbols, self._x.exchange,
+                                          scale, z_qs)
+            chunks = self._x.chunks
+        finally:
+            self._x.mode, self._x.chunks = "idle", []
+        y_strings = [encode_with_indexes(
+            np.concatenate([sym[b] for sym, _ in chunks]),
+            np.concatenate([idx[b] for _, idx in chunks]), *self._x.tables)
+            for b in range(len(z_np))]
+        x_hat = self.model.synthesize(y_hat) if self.encode_recon else None
+        return {"strings": [y_strings, z_strings],
+                "shape": tuple(z_np.shape[1:3]), "y_hat": y_hat,
+                "x_hat": x_hat}
+
+    def _z_rows(self, z_qs: float, shape) -> tuple:
+        """The factorized prior's tables at step ``z_qs`` and the row of
+        each z position of an image (its channel), raveled NHWC."""
+        eb_cdfs, eb_lengths, eb_offsets, _ = self._eb_for(z_qs)
+        rows = np.broadcast_to(np.arange(shape[-1], dtype=np.int32), shape)
+        return rows.ravel(), (eb_cdfs, eb_lengths, eb_offsets)
+
+    def _encode_z(self, z_np: np.ndarray, z_qs: float) -> list:
+        """Factorized-prior coding of z [B, zh, zw, N], per image
+        (codec.py:779)."""
+        rows, tabs = self._z_rows(z_qs, z_np.shape[1:])
+        return [encode_with_indexes(z.ravel(), rows, *tabs) for z in z_np]
+
+    def _decode_z_host(self, z_strings, z_qs: float, zh: int,
+                       zw: int) -> np.ndarray:
+        """The z symbols [B, zh, zw, N] int32 of each image's z string
+        (codec.py:767)."""
+        shape = (zh, zw, self.model.cfg.N)
+        rows, tabs = self._z_rows(z_qs, shape)
+        return np.stack([decode_with_indexes(z, rows, *tabs).reshape(shape)
+                         for z in z_strings])
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
     def decompress(self, strings, shape, s: int = 0, inputscale: float = 0.0,
-                   timings: dict | None = None) -> dict:
+                   timings: dict | None = None, wait: bool = True) -> dict:
         """strings: [y_strings, z_strings] from ``compress``; shape: the z
         spatial dims; ``s`` and ``inputscale`` as the encoder's.  Returns
-        {"x_hat", "y_hat", "cost_time"}, NHWC.  A ``timings`` dict receives
-        the ms of each stage, as in ``compress``: parse, entropy_decode,
-        synthesize."""
+        {"x_hat", "y_hat", "cost_time"}, NHWC.  Streams with a z string
+        each are the reference's, decoded on the host as the steps backend
+        codes; streams without are format v4, decoded on the device.  A
+        ``timings`` dict receives the format-v4 decode's ms of each stage,
+        as in ``compress``: parse, entropy_decode, synthesize.
+        ``wait=False`` (format v4) returns once the decode and the
+        synthesis are queued, without waiting for the device: the caller
+        waits for ``x_hat``, and ``cost_time`` then measures the queueing
+        (codec.py:976)."""
         t0 = time.perf_counter()
-        if self.tables is None:
-            self.update()
+        self._require_tables()
+        if all(strings[1]):
+            out = self._decompress_host_coded(strings, shape, s, inputscale)
+            self._sync()
+            out["cost_time"] = time.perf_counter() - t0
+            return out
+        if self._gauss is None:
+            self._update_device()
         t = time.perf_counter()
         words, img_begin, escs, esc_begin = [], [], [], []
         n_words = n_esc = 0
         for stream in strings[0]:
             if not stream_is_unified(stream):
-                raise ValueError("not a format-v4 stream")
+                raise ValueError("not a format-v4 stream, and a stream of "
+                                 "the steps backend carries a z string")
             lanes = stream_lanes(stream)
             if lanes > MAX_LANES:
                 raise ValueError(
@@ -328,13 +584,11 @@ class Codec:
             escs.append(e)
             n_words += len(w)
             n_esc += len(e)
-        dev = self.device
 
         def i32(a):
-            return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+            return self._to_device(np.asarray(a, np.int32))
 
-        words_t = torch.from_numpy(
-            np.concatenate(words).view(np.int16)).to(dev)
+        words_t = self._to_device(np.concatenate(words).view(np.int16))
         esc_t = i32(np.concatenate(escs) if n_esc else np.zeros(1))
         zh, zw = shape
         img_begin_t, esc_begin_t = i32(img_begin), i32(esc_begin)
@@ -349,7 +603,75 @@ class Codec:
         t = self._stage(timings, "entropy_decode", t)
         x_hat = self.model.synthesize(y_hat)
         self._stage(timings, "synthesize", t)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        if wait:
+            self._sync()
         return {"x_hat": x_hat, "y_hat": y_hat,
                 "cost_time": time.perf_counter() - t0}
+
+    def _decompress_host_coded(self, strings, shape, s: int,
+                               inputscale: float) -> dict:
+        """The reference's streams' decompress (codec.py:1069): z
+        decoded on the host, uploaded, then the slice loop with every
+        phase's symbols decoded on the host from each image's y stream."""
+        y_strings, z_strings = strings
+        scale = self._scale_for(s, inputscale)
+        z_qs = self._z_qs_for(s, inputscale)
+        z = self._decode_z_host(z_strings, z_qs, *shape)
+        z_symbols = torch.from_numpy(z).to(self.device)
+        decoders = []
+        try:
+            for stream in y_strings:
+                decoders.append(RansDecoder())
+                decoders[-1].set_stream(stream)
+            self._x.mode, self._x.decoders = "decode", decoders
+            y_hat = self.model.codec_pass(None, z_symbols, self._x.exchange,
+                                          scale, z_qs)
+        finally:
+            self._x.mode, self._x.decoders = "idle", []
+            for dec in decoders:
+                dec.close()
+        return {"x_hat": self.model.synthesize(y_hat), "y_hat": y_hat}
+
+    # ------------------------------------------------------------------
+    def roundtrip_stream(self, batches, s: int = 0, inputscale: float = 0.0,
+                         wait: bool = True):
+        """Serving pipeline (codec.py:1091): yields ``(enc, dec)`` per
+        batch, two deep on the device backend -- batch i+1's
+        ``compress_begin`` is queued before batch i's ``compress_end``, and
+        batch i's decode is queued before batch i-1's pair is handed out
+        -- and one batch at a time on the others.  With ``wait=False`` the
+        yielded ``dec["x_hat"]`` may still be in flight."""
+        if self.backend != "device":
+            for x in batches:
+                enc = self.compress(x, s, inputscale)
+                yield enc, self.decompress(enc["strings"], enc["shape"], s,
+                                           inputscale)
+            return
+        it = iter(batches)
+        x = next(it, None)
+        h = None if x is None else self.compress_begin(x, s, inputscale)
+        pending = None          # (enc, dec, done event)
+        while h is not None:
+            x = next(it, None)
+            h_next = None if x is None else self.compress_begin(x, s,
+                                                                inputscale)
+            enc = self.compress_end(h)
+            dec = self.decompress(enc["strings"], enc["shape"], s,
+                                  inputscale, wait=False)
+            done = None
+            if self.device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record()
+            if pending is not None:
+                yield self._handed_out(pending, wait)
+            pending = (enc, dec, done)
+            h = h_next
+        if pending is not None:
+            yield self._handed_out(pending, wait)
+
+    @staticmethod
+    def _handed_out(pending, wait: bool):
+        enc, dec, done = pending
+        if wait and done is not None:
+            done.synchronize()
+        return enc, dec

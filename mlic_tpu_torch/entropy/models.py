@@ -4,10 +4,13 @@ factorized prior over z (``EntropyBottleneck``) with its training half --
 likelihoods under uniform noise or rounding, STE quantization, the
 auxiliary quantile loss -- and its host-side CDF tables; the
 variable-rate prior (``EntropyBottleneckVbr``) quantizes z with a step
-``qs`` and its tables integrate each slot over +-qs/2."""
+``qs`` and its tables integrate each slot over +-qs/2; the conditional
+Gaussian's host tables (``GaussianConditionalTables``) feed the host rANS
+coder of the ``steps`` and ``fused`` codec backends."""
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Sequence
 
@@ -16,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mlic_tpu_torch.entropy.cdf import build_cdf_tables
+from mlic_tpu_torch.entropy.cdf import build_cdf_tables, get_scale_table
 from mlic_tpu_torch.ops.math import lower_bound, quantize_ste
 
 LIKELIHOOD_BOUND = 1e-9
@@ -47,6 +50,40 @@ def build_indexes(scales: torch.Tensor, scale_table: torch.Tensor,
     scales = lower_bound(scales, scale_bound)
     return torch.searchsorted(scale_table[:-1].contiguous(),
                               scales.contiguous(), right=False).to(torch.int32)
+
+
+@dataclasses.dataclass
+class GaussianConditionalTables:
+    """Host-side integer CDF tables of the conditional Gaussian, one row a
+    scale of the table (models.py:61): each row codes the integers within
+    ``ceil(scale * multiplier)`` of the mean, where P(|X| > width) <=
+    ``tail_mass``, with the tail in the escape slot.  numpy and scipy in
+    float64 on ``build_cdf_tables``: bit-exact with the JAX package's."""
+
+    scale_table: np.ndarray
+    quantized_cdf: np.ndarray  # [n_scales, max_len + 2] int32
+    cdf_length: np.ndarray     # [n_scales] int32
+    offset: np.ndarray         # [n_scales] int32
+
+    @classmethod
+    def create(cls, scale_table: np.ndarray | None = None,
+               tail_mass: float = TAIL_MASS) -> "GaussianConditionalTables":
+        from scipy import stats
+        if scale_table is None:
+            scale_table = get_scale_table()
+        scale_table = np.asarray(scale_table, dtype=np.float64)
+        multiplier = -stats.norm.ppf(tail_mass / 2)
+        centers = np.ceil(scale_table * multiplier).astype(np.int64)
+        pmf_lengths = 2 * centers + 1
+        max_length = int(pmf_lengths.max())
+        samples = np.abs(np.arange(max_length)[None, :] - centers[:, None])
+        upper = stats.norm.cdf((0.5 - samples) / scale_table[:, None])
+        lower = stats.norm.cdf((-0.5 - samples) / scale_table[:, None])
+        cdfs, lengths = build_cdf_tables(upper - lower, pmf_lengths,
+                                         2 * lower[:, 0], max_length)
+        return cls(scale_table=scale_table.astype(np.float32),
+                   quantized_cdf=cdfs, cdf_length=lengths,
+                   offset=(-centers).astype(np.int32))
 
 
 class EntropyBottleneck(nn.Module):

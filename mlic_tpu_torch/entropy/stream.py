@@ -65,10 +65,19 @@ def assemble_streams(comp: dict, n_lanes: int) -> list:
     counts = torch.cat([comp["img_n"], comp["ecount"]]).cpu().numpy()
     img_n, ecount = np.split(counts.astype(np.int64), 2)
     buf = comp["buf"][:int(img_n.sum())].cpu().numpy().view(np.uint16)
-    ebuf = comp["ebuf"][:int(ecount.sum())].cpu().numpy().astype(np.int32)
+    ebuf = comp["ebuf"][:int(ecount.sum())].cpu().numpy()
+    return pack_streams(img_n, ecount, buf, ebuf, n_lanes)
+
+
+def pack_streams(img_n, ecount, buf: np.ndarray, ebuf: np.ndarray,
+                 n_lanes: int) -> list:
+    """Per-image format-v4 streams from host arrays: each image's word
+    count and escape count, all images' words (uint16, image after image)
+    and escapes (int32)."""
     flags = _V3_FLAG | _V4_FLAG
     wb = np.concatenate([[0], np.cumsum(img_n)])
     eb = np.concatenate([[0], np.cumsum(ecount)])
+    ebuf = ebuf.astype(np.int32)
     streams = []
     for b in range(len(img_n)):
         header = np.asarray([np.uint32(n_lanes) | flags, img_n[b], ecount[b]],

@@ -144,8 +144,8 @@ class LocalContext(nn.Module):
         out = torch.matmul(attn, vs)                      # [b,L,heads,ws2,hd]
         out = out.permute(0, 1, 3, 2, 4).reshape(b, L, ws2 * c)
         # Per-window fusion conv(k=win) == Dense over the flattened window,
-        # (i*w + j)*C + c order.
-        out = self.proj(self.fusion(out))
+        # (i*w + j)*C + c order; its long reduction an image at a time.
+        out = self.proj(per_image(self.fusion, out))
         out = out + self.mlp(self.norm2(out))
         return out.reshape(b, h, w, 2 * c).permute(0, 3, 1, 2)
 
@@ -176,16 +176,40 @@ class _QKVConv(nn.Module):
         return self.dw(self.pw(x))
 
 
+def per_image(fn, *xs):
+    """``fn`` on each image of the batch alone, the results concatenated,
+    when no gradient is recorded (coding); one call on the whole batch
+    otherwise (training, whose products are never decoded).
+
+    Entropy parameters must not depend on what else is in the batch: a
+    stream encoded in a batch is decoded alone (a container a file) and
+    must see the same floats.  The card's BLAS picks its kernel, and with
+    it the order of a long reduction, by the problem's size, so a product
+    whose rows span the batch can round an image differently at another
+    batch size; on an image alone the shape is the same at every batch.
+    The products that showed it on an H100 (MLICPP_S at batches of 8 and
+    32 against 1) take this path: the linear attentions' contractions, the
+    local context's window fusion and the inter-slice context's 5x5
+    reprojection."""
+    if xs[0].shape[0] == 1 or torch.is_grad_enabled():
+        return fn(*xs)
+    return torch.cat([fn(*(x[i:i + 1] for x in xs))
+                      for i in range(xs[0].shape[0])])
+
+
 def _linear_attention(q, k, v, num_heads: int):
     """softmax(K over space)^T V, then times softmax(Q over head channels).
-    q, k, v: [B, N, C] -> [B, N, C] (context.py:206)."""
+    q, k, v: [B, N, C] -> [B, N, C] (context.py:206); the two contractions
+    an image at a time (``per_image``)."""
     b, n, c = q.shape
     hd = c // num_heads
     q = torch.softmax(q.reshape(b, n, num_heads, hd), dim=3)
     k = torch.softmax(k.reshape(b, n, num_heads, hd), dim=1)
     v = v.reshape(b, n, num_heads, hd)
-    ctx = torch.einsum("bnhd,bnhe->bhde", k, v)
-    out = torch.einsum("bhde,bnhd->bnhe", ctx, q)
+    ctx = per_image(lambda k1, v1: torch.einsum("bnhd,bnhe->bhde", k1, v1),
+                    k, v)
+    out = per_image(lambda c1, q1: torch.einsum("bhde,bnhd->bnhe", c1, q1),
+                    ctx, q)
     return out.reshape(b, n, c)
 
 
@@ -215,7 +239,8 @@ class LinearGlobalInterContext(nn.Module):
         b, c, h, w = x.shape
         att = _linear_attention(_tokens(self.queries(x)), _tokens(self.keys(x)),
                                 _tokens(self.values(x)), self.num_heads)
-        att = self.reprojection(att.reshape(b, h, w, c).permute(0, 3, 1, 2))
+        att = per_image(self.reprojection,
+                        att.reshape(b, h, w, c).permute(0, 3, 1, 2))
         mlp = self.mlp2(gelu(self.mlp1(gelu(self.mlp0(att)))))
         return self.skip(att) + mlp
 

@@ -9,13 +9,18 @@ encode pass (``codec_encode_pass``: h_s, then per slice an anchor and a
 non-anchor checkerboard phase through the channel, global and local
 contexts) and the format-v4 device decode (``codec_device_pass_v4``: z
 decoded from the stream by integer-row bisection, then the same slice loop
-with each phase's symbols decoded on the device).
+with each phase's symbols decoded on the device), and the host-coded
+backends' halves: the step methods (``codec_begin``,
+``codec_step_anchor``, ``codec_step_nonanchor``, ``codec_finish``), one
+phase at a time, and ``codec_pass``, which runs them in order with a host
+exchange called once a phase.
 
-Training, encode and decode run ONE slice loop (``_slices``) that differs
-only in how a phase obtains its quantized values, so both coding
-directions call the same torch functions on the same shapes and layouts:
-that is what makes the entropy parameters, and hence the round trip,
-bit-exact.
+Training and every coding path run ONE slice loop, built of the phase
+helpers ``_anchor_phase``, ``_nonanchor_phase`` and ``_finish_slice``, that
+differs only in how a phase obtains its quantized values, so both coding
+directions, and every backend, call the same torch functions on the same
+shapes and layouts: that is what makes the entropy parameters, and hence
+the round trip, bit-exact, and the backends' y_hat equal.
 
 The coding halves take the variable-rate models' quantization scale
 (``scale``: symbols are ``round((y - mu) * scale)``, rows are looked up at
@@ -176,36 +181,61 @@ class MLICPlusPlus(nn.Module):
         return self._sub(branch, idx)(
             torch.cat([hyper_means] + list(y_hat_slices) + [current], 1))
 
+    def _slice_state(self, hyper_params) -> dict:
+        """The slice loop's state: the hyper parameters and the slices
+        reconstructed so far; the phase helpers below add the current
+        slice's contexts and anchor half."""
+        _, hyper_means = hyper_params.chunk(2, 1)
+        return {"hyper_params": hyper_params, "hyper_means": hyper_means,
+                "y_hat_slices": []}
+
+    def _anchor_phase(self, st: dict, idx: int):
+        """Slice ``idx``'s global-inter and channel contexts, kept in
+        ``st``, and its anchor phase's (scales, means)."""
+        st["inter_ctx"], st["channel_ctx"] = self._slice_ctx(
+            idx, st["y_hat_slices"])
+        return self._anchor_params(idx, st["hyper_params"], st["inter_ctx"],
+                                   st["channel_ctx"]).chunk(2, 1)
+
+    def _nonanchor_phase(self, st: dict, idx: int, slice_anchor):
+        """From the anchor half of slice ``idx`` (unsqueezed): its LRP
+        correction, kept in ``st``, then the local and global-intra
+        contexts and the non-anchor phase's (scales, means)."""
+        slices = st["y_hat_slices"]
+        slice_anchor = slice_anchor + ckbd_anchor(self._lrp(
+            "lrp_anchor", idx, st["hyper_means"], slices, slice_anchor))
+        st["slice_anchor"] = slice_anchor
+        local_ctx = self._sub("local", idx)(slice_anchor)
+        intra_ctx = (self._sub("gintra", idx)(slices[-1], slice_anchor)
+                     if idx else None)
+        return self._nonanchor_params(
+            idx, st["hyper_params"], local_ctx, intra_ctx, st["inter_ctx"],
+            st["channel_ctx"]).chunk(2, 1)
+
+    def _finish_slice(self, st: dict, idx: int, slice_nonanchor) -> None:
+        """Slice ``idx`` from its non-anchor half and the anchor half, with
+        the second LRP correction, appended to ``st``'s slices."""
+        slices = st["y_hat_slices"]
+        y_hat_slice = slice_nonanchor + st["slice_anchor"]
+        slices.append(y_hat_slice + ckbd_nonanchor(self._lrp(
+            "lrp_nonanchor", idx, st["hyper_means"], slices, y_hat_slice)))
+
     def _slices(self, hyper_params, phase):
-        """The slice loop that training and both coding directions share
+        """The slice loop that training and every coding path share
         (mlicpp.py:186-215, 647-672).  ``phase(idx, squeeze, unsqueeze,
         scales, means)`` returns the reconstructed (unsqueezed) half of
-        slice ``idx``."""
-        _, hyper_means = hyper_params.chunk(2, 1)
-        y_hat_slices = []
+        slice ``idx``.  The step methods of the host-coded backends run the
+        same phase helpers one phase at a time."""
+        st = self._slice_state(hyper_params)
         for idx in range(self.cfg.slice_num):
-            inter_ctx, channel_ctx = self._slice_ctx(idx, y_hat_slices)
-            scales_a, means_a = self._anchor_params(
-                idx, hyper_params, inter_ctx, channel_ctx).chunk(2, 1)
+            scales, means = self._anchor_phase(st, idx)
             slice_anchor = phase(idx, ckbd_anchor_squeeze,
-                                 ckbd_anchor_unsqueeze, scales_a, means_a)
-            slice_anchor = slice_anchor + ckbd_anchor(self._lrp(
-                "lrp_anchor", idx, hyper_means, y_hat_slices, slice_anchor))
-            local_ctx = self._sub("local", idx)(slice_anchor)
-            intra_ctx = (self._sub("gintra", idx)(y_hat_slices[-1],
-                                                  slice_anchor)
-                         if idx else None)
-            scales_na, means_na = self._nonanchor_params(
-                idx, hyper_params, local_ctx, intra_ctx, inter_ctx,
-                channel_ctx).chunk(2, 1)
+                                 ckbd_anchor_unsqueeze, scales, means)
+            scales, means = self._nonanchor_phase(st, idx, slice_anchor)
             slice_nonanchor = phase(idx, ckbd_nonanchor_squeeze,
-                                    ckbd_nonanchor_unsqueeze, scales_na,
-                                    means_na)
-            y_hat_slice = slice_nonanchor + slice_anchor
-            y_hat_slice = y_hat_slice + ckbd_nonanchor(self._lrp(
-                "lrp_nonanchor", idx, hyper_means, y_hat_slices, y_hat_slice))
-            y_hat_slices.append(y_hat_slice)
-        return torch.cat(y_hat_slices, 1)
+                                    ckbd_nonanchor_unsqueeze, scales, means)
+            self._finish_slice(st, idx, slice_nonanchor)
+        return torch.cat(st["y_hat_slices"], 1)
 
     # --------------------------- training ------------------------------
     def forward(self, x, training: bool = True, noise=None, generator=None):
@@ -302,6 +332,24 @@ class MLICPlusPlus(nn.Module):
         return to_nhwc(self.g_s(to_nchw(y_hat)))
 
     # ------------------------- real coding -----------------------------
+    def _phase_quantities(self, squeeze, y_slice, scales, means, scale):
+        """One coding phase's squeezed (means, scales), scale indexes
+        (int32, at ``sigma * scale``) and candidate symbols
+        ``round((y - mu) * scale)`` (int32; None without ``y_slice``, as
+        when decoding), NCHW (mlicpp.py:262)."""
+        sc_sq, mu_sq = squeeze(scales), squeeze(means)
+        indexes = build_indexes(times(sc_sq, scale), self.scale_table)
+        cand = None if y_slice is None else torch.round(times(
+            squeeze(y_slice) - mu_sq, scale)).to(torch.int32)
+        return mu_sq, sc_sq, indexes, cand
+
+    def _recon_flat(self, symbols, mu_sq, sc_sq, scale, unsqueeze):
+        """A phase's unsqueezed half from its symbols as the host exchange
+        gives them, int32 [B, n] raveled NHWC."""
+        b, c, h, w2 = mu_sq.shape
+        sym = to_nchw(symbols.reshape(b, h, w2, c))
+        return unsqueeze(self._phase_recon(sym, mu_sq, sc_sq, scale))
+
     def codec_encode_pass(self, y, z_symbols, scale=1.0, z_qs=1.0):
         """Encode pass (mlicpp.py:607): y [B,h,w,M] and z_symbols NHWC ->
         (y_hat NHWC, symbols int32 [B, total], indexes int32 [B, total]),
@@ -314,17 +362,86 @@ class MLICPlusPlus(nn.Module):
         syms, idxs = [], []
 
         def phase(idx, squeeze, unsqueeze, scales, means):
-            sc_sq, mu_sq = squeeze(scales), squeeze(means)
-            indexes = build_indexes(times(sc_sq, scale), self.scale_table)
-            cand = torch.round(times(
-                squeeze(y[:, idx * C:(idx + 1) * C]) - mu_sq, scale)
-            ).to(torch.int32)
+            mu_sq, sc_sq, indexes, cand = self._phase_quantities(
+                squeeze, y[:, idx * C:(idx + 1) * C], scales, means, scale)
             syms.append(nhwc_flat(cand))
             idxs.append(nhwc_flat(indexes))
             return unsqueeze(self._phase_recon(cand, mu_sq, sc_sq, scale))
 
         y_hat = self._slices(hyper_params, phase)
         return to_nhwc(y_hat), torch.cat(syms, 1), torch.cat(idxs, 1)
+
+    # ---- the host-coded backends: one phase at a time (mlicpp.py:279-455)
+    def _emit(self, st: dict, idx: int, squeeze, scales, means):
+        """A phase's (indexes uint8, candidates int32 or None), [B, n]
+        raveled NHWC as the host coder reads them; its squeezed means and
+        scales stay in ``st`` for the reconstruction."""
+        C = self.cfg.slice_ch
+        y = st["y"]
+        mu_sq, sc_sq, indexes, cand = self._phase_quantities(
+            squeeze, None if y is None else y[:, idx * C:(idx + 1) * C],
+            scales, means, st["scale"])
+        st["means_sq"], st["scales_sq"] = mu_sq, sc_sq
+        return (nhwc_flat(indexes).to(torch.uint8),
+                None if cand is None else nhwc_flat(cand))
+
+    def _recon_state(self, st: dict, symbols, unsqueeze):
+        return self._recon_flat(symbols, st["means_sq"], st["scales_sq"],
+                                st["scale"], unsqueeze)
+
+    def codec_begin(self, y, z_symbols, scale=1.0, z_qs=1.0):
+        """Start a host-coded run (mlicpp.py:306): h_s of the z symbols
+        (NHWC int32, at step ``z_qs``) and slice 0's anchor phase.  ``y``
+        is the latent [B,h,w,M] when encoding and None when decoding (it
+        enters only the candidate symbols).  Returns (state, indexes,
+        candidates) of the phase: indexes uint8 [B, n] and candidates
+        int32 [B, n] (None when decoding), raveled NHWC."""
+        st = self._slice_state(self.h_s(self._z_hat(to_nchw(z_symbols),
+                                                    z_qs)))
+        st["y"] = None if y is None else to_nchw(y)
+        st["scale"] = scale
+        return (st, *self._emit(st, 0, ckbd_anchor_squeeze,
+                                *self._anchor_phase(st, 0)))
+
+    def codec_step_anchor(self, state: dict, symbols, idx: int):
+        """Take slice ``idx``'s anchor symbols (int32 [B, n], raveled
+        NHWC) and emit its non-anchor phase (mlicpp.py:329)."""
+        anchor = self._recon_state(state, symbols, ckbd_anchor_unsqueeze)
+        return (state, *self._emit(
+            state, idx, ckbd_nonanchor_squeeze,
+            *self._nonanchor_phase(state, idx, anchor)))
+
+    def codec_step_nonanchor(self, state: dict, symbols, idx: int):
+        """Complete slice ``idx`` from its non-anchor symbols and emit the
+        next slice's anchor phase, or (state, None, None) after the last
+        slice (mlicpp.py:359)."""
+        self._finish_slice(state, idx, self._recon_state(
+            state, symbols, ckbd_nonanchor_unsqueeze))
+        nxt = idx + 1
+        if nxt == self.cfg.slice_num:
+            return state, None, None
+        return (state, *self._emit(state, nxt, ckbd_anchor_squeeze,
+                                   *self._anchor_phase(state, nxt)))
+
+    def codec_finish(self, state: dict):
+        """y_hat [B,h,w,M], NHWC, of a completed run (mlicpp.py:395);
+        ``synthesize`` turns it into the image."""
+        return to_nhwc(torch.cat(state["y_hat_slices"], 1))
+
+    def codec_pass(self, y, z_symbols, exchange, scale=1.0, z_qs=1.0):
+        """The whole host-coded run in one call (mlicpp.py:399): the step
+        methods in coding order, with ``exchange(tag, indexes, candidates)
+        -> symbols`` called once a phase (tags ``a0``, ``n0``, ``a1``, ...;
+        arrays as ``codec_begin`` gives them).  ``y`` as in
+        ``codec_begin``.  Returns y_hat NHWC."""
+        state, indexes, cand = self.codec_begin(y, z_symbols, scale, z_qs)
+        for idx in range(self.cfg.slice_num):
+            symbols = exchange(f"a{idx}", indexes, cand)
+            state, indexes, cand = self.codec_step_anchor(state, symbols, idx)
+            symbols = exchange(f"n{idx}", indexes, cand)
+            state, indexes, cand = self.codec_step_nonanchor(state, symbols,
+                                                             idx)
+        return self.codec_finish(state)
 
     def codec_device_pass_v4(self, zh: int, zw: int, words, img_begin, tables,
                              n_lanes: int, n_steps: int, z_steps_row: int,
@@ -365,16 +482,14 @@ class MLICPlusPlus(nn.Module):
         state = {"carry": carry}
 
         def phase(idx, squeeze, unsqueeze, scales, means):
-            sc_sq, mu_sq = squeeze(scales), squeeze(means)
-            b, c, h, w2 = mu_sq.shape
-            n_img = c * h * w2
-            ordered = phase_order(nhwc_flat(build_indexes(
-                times(sc_sq, scale), self.scale_table)), n_lanes,
-                pad_row).contiguous()
+            mu_sq, sc_sq, indexes, _ = self._phase_quantities(
+                squeeze, None, scales, means, scale)
+            b = mu_sq.shape[0]
+            ordered = phase_order(nhwc_flat(indexes), n_lanes,
+                                  pad_row).contiguous()
             state["carry"], sym = decode(state["carry"], ordered, tables)
             sym = (sym.reshape(-1, b, n_lanes).permute(1, 0, 2)
-                   .reshape(b, -1)[:, :n_img].reshape(b, h, w2, c))
-            return unsqueeze(self._phase_recon(to_nchw(sym), mu_sq, sc_sq,
-                                               scale))
+                   .reshape(b, -1)[:, :mu_sq[0].numel()])
+            return self._recon_flat(sym, mu_sq, sc_sq, scale, unsqueeze)
 
         return self._slices(hyper_params, phase)

@@ -32,18 +32,26 @@ class _LowerBound(torch.autograd.Function):
             None
 
 
+def _like(x: torch.Tensor, bound) -> torch.Tensor:
+    """``bound`` as a 0-d tensor of ``x``'s dtype on its device; a python
+    number is filled in place there (a copy from the host would wait for
+    the device's queue)."""
+    if torch.is_tensor(bound):
+        return bound.to(dtype=x.dtype, device=x.device)
+    return torch.full((), bound, dtype=x.dtype, device=x.device)
+
+
 def lower_bound(x: torch.Tensor, bound) -> torch.Tensor:
     """``max(x, bound)`` with the gradient rule of ``_LowerBound``; no
     gradient reaches ``bound``."""
-    bound = torch.as_tensor(bound, dtype=x.dtype, device=x.device)
+    bound = _like(x, bound)
     if not torch.is_grad_enabled() or not x.requires_grad:
         return torch.maximum(x, bound)
     return _LowerBound.apply(x, bound.detach())
 
 
 def upper_bound(x: torch.Tensor, bound) -> torch.Tensor:
-    return -lower_bound(-x, -torch.as_tensor(bound, dtype=x.dtype,
-                                             device=x.device))
+    return -lower_bound(-x, -_like(x, bound))
 
 
 def quantize_ste(x: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,9 @@
 Decodes every ``.bin``/``.bit`` file of the directory (the container of
 ``eval.compress_one_image``; with ``--vbr`` the header that records the
 gain level) through ``eval.decompress_one_image`` and writes one PNG each.
+Each file is decoded as its streams say: format v4 on the device, or the
+reference's host-coded streams (those of the ``steps`` and ``fused``
+backends, the JAX eval CLI's default) through the host coder.
 Runs on the CUDA card unless ``--cpu`` is given; ``MLIC_FUSED_BLOCKS=1``
 selects the fused block tail (K5) in g_s.
 

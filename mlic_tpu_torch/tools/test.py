@@ -2,7 +2,7 @@
 
     python -m mlic_tpu_torch.tools.test --dataset DIR [--model MLICPP_S]
         [--checkpoint FILE] [--save-dir DIR] [--transform-dtype NAME]
-        [--level S] [--cpu]
+        [--level S] [--backend device|steps|fused] [--cpu]
 
 Compresses every image of a folder to a real bitstream file, decompresses it
 and reports bpp, PSNR, MS-SSIM and the encode and decode wall-clock.  Runs
@@ -13,6 +13,9 @@ without it the weights are seeded random ones, which exercise the codec
 but compress nothing.  ``--level`` codes a VBR model (e.g. MLICPP_S_VBR)
 at that gain level and writes the VBR header; without it a VBR model codes
 at level 0, as the reference CLI does.
+``--backend`` picks the codec's backend: ``device`` (format v4, both rANS
+directions on the card; the port's default) or the reference's host-coded
+``steps`` / ``fused`` streams (the JAX CLI's default is ``steps``).
 ``MLIC_FUSED_BLOCKS=1`` in the environment selects the fused block-tail
 kernel in g_a and g_s.  The codec picks its rANS lane count from the first
 image's size (``Codec(n_lanes="auto")``), as the reference CLI does.
@@ -25,7 +28,7 @@ import argparse
 import numpy as np
 import torch
 
-from mlic_tpu_torch.codec import Codec
+from mlic_tpu_torch.codec import BACKENDS, Codec
 from mlic_tpu_torch.data.folder import list_images, load_image
 from mlic_tpu_torch.eval import evaluate_codec
 from mlic_tpu_torch.models.registry import get_model
@@ -42,6 +45,10 @@ def main(argv=None) -> dict:
     p.add_argument("--transform-dtype", default=None,
                    choices=["float32", "bfloat16", "bfloat16_mixed"])
     p.add_argument("--level", type=int, default=None, help="VBR gain level")
+    p.add_argument("--backend", default="device", choices=BACKENDS,
+                   help="device: format v4 on the card (the port's "
+                        "default); steps or fused: the reference's "
+                        "host-coded streams (the JAX CLI's default: steps)")
     p.add_argument("--cpu", action="store_true")
     args = p.parse_args(argv)
 
@@ -54,7 +61,8 @@ def main(argv=None) -> dict:
     else:
         state = init_params(model, torch.Generator().manual_seed(0))
     model.load_state_dict(state, strict=True)
-    codec = Codec(model, device="cpu" if args.cpu else None)
+    codec = Codec(model, device="cpu" if args.cpu else None,
+                  backend=args.backend)
     codec.update()
     images = (load_image(f).astype(np.float32) / 255.0 for f in files)
     results = evaluate_codec(codec, images, args.save_dir, s=args.level)

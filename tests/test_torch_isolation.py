@@ -42,7 +42,8 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
     assert len(names) >= 40                       # every module was imported
-    for name in ("tools.decode", "tools.extract_decoder"):
+    for name in ("tools.decode", "tools.extract_decoder", "tools.serve",
+                 "tools.rd_vbr", "entropy.rans", "entropy.rans.coder"):
         assert f"mlic_tpu_torch.{name}" in names
 
 
@@ -148,3 +149,21 @@ def test_kernel_sources_are_listed():
     # K2 and K4 evaluate the CDF through the one shared header
     for src in ("eval_cdf.cu", "rans_decode.cu"):
         assert '#include "cdf.cuh"' in (_build.CSRC / src).read_text()
+
+
+def test_host_coder_source_is_the_ports_own():
+    """The host rANS coder builds from the port's own ``rans.cpp``, which
+    includes only the C++ standard library, into the build directory."""
+    import re
+    from pathlib import Path
+
+    from mlic_tpu_torch.entropy.rans import coder
+
+    assert coder.SOURCE.parent == Path(ROOT, "mlic_tpu_torch", "entropy",
+                                       "rans")
+    includes = re.findall(r"^\s*#\s*include\s*(\S+)",
+                          coder.SOURCE.read_text(), re.M)
+    assert includes and all(i in ("<cstdint>", "<cstring>", "<vector>")
+                            for i in includes), includes
+    assert coder.library_path().parent == coder.BUILD_DIR
+    assert coder.BUILD_DIR.relative_to(ROOT).parts == ("build", "host")
