@@ -157,7 +157,22 @@
    ``train_small_decoder_frozen`` line): ``tools.train --freeze`` on g_a
    and h_a for 3 steps, every frozen leaf bit-equal to the start and every
    other leaf with a gradient moved;
-18. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+18. path 10, the codec's other paths (the ``codec_paths`` line), on path
+   1's settings and frames (path 1's ``update`` must take no fallback):
+   format v3 (``MLIC_UNIFIED_Z=0``: z coded on the host) over 3 batches,
+   bit-exact with K7, K3 and K6 once and K4 2 * slice_num times a
+   request, its y streams the port's ``encode_global`` of the phase
+   symbols, bpp beside v4's, the host z coder's share, an image of a batch
+   decoded alone by ``tools.decode``; fallback A (the encode-shaped check
+   forced to fail in this process) writing path 1's bytes through K7's
+   gather mode; fallback B (validation forced to fail) bit-exact at v4 and
+   v3 over 3 batches, and K7's gather mode and K4's row mode on all y
+   phases at width 3,136 against their plain versions, exact, timed (the
+   kernels line's ``y_gather`` and ``y_rows`` rows, the latter with its
+   chain bound); ``tools.test`` and ``tools.decode`` under
+   ``MLIC_UNIFIED_Z=0`` (subprocesses, PNG exact) and
+   ``tools.ab_stream_format`` at batch 8, 2 segments a regime;
+19. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 
 Exits non-zero, before printing any result, without CUDA or without the
@@ -210,6 +225,10 @@ CDF_OPS = 36
 # shortest latency of the integer pipes, taken low so that K3's chain bound
 # stays a bound (the script does not measure it).
 DEP_CYCLES = 4
+# Cycles of a load that hits in L2, taken at the low end of what
+# microbenchmarks of Hopper report (about 200-270), so that K4's row-mode
+# chain bound stays a bound (the script does not measure it).
+L2_HIT_CYCLES = 200
 # Host calls that wait for the card: encode_rans_v4 must make none.
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize", "cudaMemcpy")
@@ -772,6 +791,14 @@ def sass_step_chains(code: list) -> list:
     return chains
 
 
+def sm_clock_max_mhz() -> float:
+    """The card's highest SM clock in MHz (``nvidia-smi``)."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True)
+        .stdout.split()[0])
+
+
 def k3_chain_bound(S: int) -> dict:
     """K3's bound by its chain, read from its own SASS (``cuobjdump -sass``
     of the built library, written to build/kernels/rans_encode.sass): the
@@ -805,10 +832,7 @@ def k3_chain_bound(S: int) -> dict:
     if not per_step or step is None:
         raise AssertionError("no step of K3's chain found in its SASS")
     n_dep = per_step.most_common(1)[0][0]
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
-         "nounits"], capture_output=True, text=True, check=True)
-        .stdout.split()[0])
+    mhz = sm_clock_max_mhz()
     return {"chain_bound_ms": S * n_dep * DEP_CYCLES / (mhz * 1e3),
             "chain_instructions_a_step": n_dep,
             "chain_steps_read": dict(per_step), "chain_step": step,
@@ -907,7 +931,7 @@ def check_kernels(codec, counts, extras: bool = True):
     from mlic_tpu_torch.codec import encode_rans_v4
     from mlic_tpu_torch.entropy import device_rans as dr
     from mlic_tpu_torch.entropy.parametric import eval_cdf, eval_cdf_plain
-    from mlic_tpu_torch.entropy.stream import assemble_streams, parse_global
+    from mlic_tpu_torch.entropy.stream import assemble_streams
     from mlic_tpu_torch.ops.select_rows import select_rows, select_rows_plain
 
     dev = codec.device
@@ -1062,8 +1086,43 @@ def check_kernels(codec, counts, extras: bool = True):
         next(k for k in out if k["name"] == "rans_encode_prep")[
             "big_batch_queued_ms"] = big["prep_queued_ms"]
 
-    # K4 phase by phase over those streams: kernel and plain on the same
-    # carry, then the escape patch; the symbols must come back.
+    # K4 phase by phase over those streams, timed on the first y phase.
+    err, (call, plain, rows1, got1, ptr0) = decode_phases(
+        codec, streams, idx, z, sym_steps)
+    P = rows1.numel()
+    consumed = int((got1[3] - ptr0).sum())
+    Lrow = rp[rows1.long(), 5].to(torch.int64).clamp(min=1)
+    evals = float(torch.floor(torch.log2(Lrow.double())).sum())
+    entry("rans_decode_phase", "rans_decode.cu",
+          "mlic_tpu/entropy/device_rans.py:169", err, cuda_ms(call, 10),
+          cuda_ms(plain, 1),
+          4 * P + 5 * P + 2 * consumed + 16 * rows1.shape[1] + 8 * BATCH
+          + rp.numel() * 4, evals * CDF_OPS + 20 * P, None,
+          list(rows1.shape), call)
+    out[-1]["phases_checked"] = n_phases + 1
+    n_z_steps = -(-z.shape[1] // N_LANES)
+    n_per_steps = -(-(idx.shape[1] // n_phases) // N_LANES)
+    if n_z_steps + n_phases * n_per_steps != S:
+        raise AssertionError("stream steps differ from the codec's layout")
+    return out
+
+
+def decode_phases(codec, streams, idx, z, sym_steps,
+                  y_parametric: bool = True) -> tuple:
+    """K4 phase by phase over ``streams`` (the payload ``idx``, ``z`` coded
+    at N_LANES by the codec's tables): the z phase by its integer rows,
+    each y phase parametrically or (``y_parametric`` False) by its integer
+    rows; kernel and plain version on the same carry, then the escape
+    patch; the symbols must come back as ``sym_steps`` (position order).
+    Returns (the max abs error, (kernel call, plain call, rows, kernel
+    outputs, word pointers before) of the first y phase)."""
+    import torch
+
+    from mlic_tpu_torch.entropy import device_rans as dr
+    from mlic_tpu_torch.entropy.stream import parse_global
+    dev, cfg, tables = codec.device, codec.model.cfg, codec.tables
+    n_phases = 2 * cfg.slice_num
+    n_per = idx.shape[1] // n_phases
     parsed = [parse_global(s) for s in streams]
     words = torch.from_numpy(np.concatenate([p[1] for p in parsed])
                              .view(np.int16)).to(dev)
@@ -1074,52 +1133,36 @@ def check_kernels(codec, counts, extras: bool = True):
                              dtype=torch.int32, device=dev)
     x, ptr = dr.rans_init_global(words, img_begin, N_LANES)
     esc_count = torch.zeros_like(esc_begin)
-    n_z_steps = -(-z.shape[1] // N_LANES)
-    n_per_steps = -(-(idx.shape[1] // n_phases) // N_LANES)
-    decoded, err, timed = [], 0.0, None
-    ordered_idx = [dr.phase_order(
-        idx[:, k * (idx.shape[1] // n_phases):(k + 1) * (idx.shape[1] // n_phases)],
-        N_LANES, rp.shape[0] - 1).contiguous() for k in range(n_phases)]
+    pad_row = codec.z_rows_base - 1
     z_rows = dr.phase_order(
         (codec.z_rows_base + torch.arange(z.shape[1], device=dev,
                                           dtype=torch.int32) % cfg.N)
-        [None].expand(BATCH, -1), N_LANES, codec.z_rows_base - 1).contiguous()
+        [None].expand(z.shape[0], -1), N_LANES, pad_row).contiguous()
+    decoded, err, timed = [], 0.0, None
     for k in range(n_phases + 1):
         if k == 0:
             args = (z_rows, tables, False)
             steps = codec.z_steps_row
         else:
-            args = (ordered_idx[k - 1], tables, True)
+            args = (dr.phase_order(idx[:, (k - 1) * n_per:k * n_per],
+                                   N_LANES, pad_row).contiguous(), tables,
+                    y_parametric)
             steps = codec.n_steps
-        got = dr.rans_decode_phase(words, x, ptr, N_LANES, steps, *args)
-        ref = dr.rans_decode_phase_plain(words, x, ptr, N_LANES, steps, *args)
-        err = max(err, max_abs_err([(g, r) for g, r in zip(got, ref)]))
+        call = functools.partial(dr.rans_decode_phase, words, x, ptr,
+                                 N_LANES, steps, *args)
+        plain = functools.partial(dr.rans_decode_phase_plain, words, x, ptr,
+                                  N_LANES, steps, *args)
+        got, ref = call(), plain()
+        err = max(err, max_abs_err(zip(got, ref)))
         if k == 1:
-            call = functools.partial(dr.rans_decode_phase, words, x, ptr,
-                                     N_LANES, steps, *args)
-            timed = (cuda_ms(call, 10), cuda_ms(functools.partial(
-                dr.rans_decode_phase_plain, words, x, ptr, N_LANES, steps,
-                *args), 1), args[0], got, ptr, call)
+            timed = (call, plain, args[0], got, ptr)
         sym_k, esc_count = dr.patch_escapes(got[0], got[1], esc_count,
                                             esc_vals, esc_begin, N_LANES)
         decoded.append(sym_k)
         x, ptr = got[2], got[3]
     if not torch.equal(torch.cat(decoded), sym_steps.reshape(-1)):
         raise AssertionError("decoded payload differs from the encoded one")
-    ms, plain_ms, rows1, got1, ptr0, call = timed
-    P = rows1.numel()
-    consumed = int((got1[3] - ptr0).sum())
-    Lrow = rp[rows1.long(), 5].to(torch.int64).clamp(min=1)
-    evals = float(torch.floor(torch.log2(Lrow.double())).sum())
-    entry("rans_decode_phase", "rans_decode.cu",
-          "mlic_tpu/entropy/device_rans.py:169", err, ms, plain_ms,
-          4 * P + 5 * P + 2 * consumed + 16 * rows1.shape[1] + 8 * BATCH
-          + rp.numel() * 4, evals * CDF_OPS + 20 * P, None,
-          list(rows1.shape), call)
-    out[-1]["phases_checked"] = n_phases + 1
-    if n_z_steps + n_phases * n_per_steps != S:
-        raise AssertionError("stream steps differ from the codec's layout")
-    return out
+    return err, timed
 
 
 def stream_ptr() -> int:
@@ -2721,6 +2764,413 @@ def pipeline_path(model, codec, frames) -> dict:
     return counts
 
 
+class EnvSet:
+    """While active, the environment holds ``values`` (None removes a
+    name); the earlier values come back after."""
+
+    def __init__(self, **values):
+        self.values = values
+        self.saved = {}
+
+    def __enter__(self):
+        for k, v in self.values.items():
+            self.saved[k] = os.environ.get(k)
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class Forced:
+    """While active, the port's check ``name`` of ``Codec.update``
+    (``entropy.parametric``) reports ``count`` entries differing: a
+    fallback forced in this process only; the package has no switch."""
+
+    def __init__(self, name: str, count: int = 5):
+        from mlic_tpu_torch.entropy import parametric
+        self.mod, self.name, self.count = parametric, name, count
+        self.saved = getattr(parametric, name)
+
+    def __enter__(self):
+        setattr(self.mod, self.name, lambda *a, **k: self.count)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.saved)
+
+
+def v3_request_launches(cfg) -> dict:
+    """A format-v3 request's launches: K7, K3 and K6 once (no z section),
+    K4 twice a slice (no z phase), K1, K2 and K5 none."""
+    return {**request_launches(cfg),
+            "rans_decode_phase": 2 * cfg.slice_num}
+
+
+def coded_requests(codec, frames, label: str, want: dict | None = None,
+                   ref=None) -> tuple:
+    """Each batch of ``frames`` compressed and decompressed, bit-exact
+    (y_hat and x_hat), timed whole; with ``want`` each request's launches
+    must be those; with ``ref`` (a codec) the streams must be its bytes on
+    the same batch.  Returns (rows, the first batch's compress result)."""
+    import torch
+
+    from mlic_tpu_torch.ops import _build
+    rows, first = [], None
+    for r, x in enumerate(frames):
+        before = _build.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = codec.compress(x)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dec = codec.decompress(enc["strings"], enc["shape"])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        after = _build.launch_counts()
+        launches = {k: after[k] - before[k] for k in after}
+        if not (torch.equal(enc["y_hat"], dec["y_hat"])
+                and torch.equal(enc["x_hat"], dec["x_hat"])):
+            raise AssertionError(f"{label} request {r}: not bit-exact")
+        if want is not None and launches != want:
+            raise AssertionError(f"{label} request {r}: launches {launches}"
+                                 f", want {want}")
+        same = None
+        if ref is not None:
+            same = ref.compress(x)["strings"] == enc["strings"]
+            if not same:
+                raise AssertionError(f"{label} request {r}: streams differ "
+                                     "from the reference codec's")
+        b, h, w = enc["y_hat"].shape[:3]
+        n_bytes = sum(len(s) for g in enc["strings"] for s in g)
+        rows.append({"path": label, "request": r, **stream_stats(codec, enc),
+                     "bpp": 8.0 * n_bytes / (b * h * w * 256),
+                     "z_bytes": sum(len(z) for z in enc["strings"][1]),
+                     "encode_ms": (t1 - t0) * 1e3,
+                     "decode_ms": (t2 - t1) * 1e3, "launches": launches,
+                     "streams_equal_reference": same})
+        first = enc if first is None else first
+    return rows, first
+
+
+def staged_shares(codec, x, stage: dict) -> dict:
+    """One request with ``timings``: each direction's stages (ms) and the
+    share of the named ``stage`` ({direction: stage name}) in it."""
+    marks = {"compress": {}, "decompress": {}}
+    enc = codec.compress(x, timings=marks["compress"])
+    codec.decompress(enc["strings"], enc["shape"],
+                     timings=marks["decompress"])
+    out = {"stages_ms": marks}
+    for direction, name in stage.items():
+        out[f"{direction}_{name}_share"] = (marks[direction][name]
+                                            / sum(marks[direction].values()))
+    return out
+
+
+def v3_container_alone(model, enc) -> int:
+    """Image 0 of a format-v3 batch written as a container and decoded
+    alone by ``tools.decode``: entries of its x_hat that differ from g_s
+    of the encoder's y_hat for the image (0 wanted)."""
+    import torch
+
+    from mlic_tpu_torch.tools import decode, serve
+    with tempfile.TemporaryDirectory() as d:
+        bits = os.path.join(d, "bits")
+        serve._write(bits, ["frame"], 0, 1, enc, (HEIGHT, WIDTH))
+        got = decode.main(["--model", MODEL, "--checkpoint", CHECKPOINT,
+                           "--transform-dtype", "bfloat16",
+                           "--bitstream-dir", bits,
+                           "--output-dir", os.path.join(d, "png")])
+    single = torch.from_numpy(got["frame.bin"][0]).cuda()
+    return int((single != model.synthesize(enc["y_hat"][:1])[0]).sum())
+
+
+def v3_clis(model, frame) -> dict:
+    """One frame through ``python -m mlic_tpu_torch.tools.test`` under
+    ``MLIC_UNIFIED_Z=0`` into a folder and back through ``tools.decode``
+    (subprocesses on the card, the trained weights): the file must be
+    format v3 and the bytes an in-process v3 codec writes, the PNG the
+    encoder's x_hat rounded."""
+    from PIL import Image
+
+    from mlic_tpu_torch.codec import Codec
+    from mlic_tpu_torch.entropy.stream import (
+        stream_is_global,
+        stream_is_unified,
+    )
+    from mlic_tpu_torch.eval import compress_one_image
+    from mlic_tpu_torch.utils import bitstream
+    common = ["--model", MODEL, "--checkpoint", CHECKPOINT,
+              "--transform-dtype", "bfloat16"]
+    with tempfile.TemporaryDirectory() as d, EnvSet(MLIC_UNIFIED_Z="0"):
+        images, bits, pngs = (os.path.join(d, k)
+                              for k in ("images", "bits", "png"))
+        os.makedirs(images)
+        Image.fromarray(frame).save(os.path.join(images, "frame.png"))
+        secs = {}
+        for name, args in (("test", ["--dataset", images, "--save-dir",
+                                     bits]),
+                           ("decode", ["--bitstream-dir", bits,
+                                       "--output-dir", pngs])):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", f"mlic_tpu_torch.tools.{name}",
+                 *common, *args], cwd=REPO, capture_output=True, text=True,
+                timeout=600)
+            secs[name] = time.perf_counter() - t0
+            if proc.returncode:
+                raise AssertionError(f"tools.{name} under MLIC_UNIFIED_Z=0 "
+                                     f"failed ({proc.returncode}): "
+                                     f"{proc.stderr[-3000:]}")
+        path = os.path.join(bits, "img_000.bin")
+        again = os.path.join(d, "again.bin")
+        enc = compress_one_image(Codec(model, device="cuda"),
+                                 frame[None].astype(np.float32) / 255.0,
+                                 again)
+        with open(path, "rb") as f:
+            bitstream.read_uints(f, 2)
+            strings, _ = bitstream.read_body(f)
+        png = np.asarray(Image.open(os.path.join(pngs, "img_000.png")))
+        with open(path, "rb") as f, open(again, "rb") as g:
+            same_file = f.read() == g.read()
+    y, z = strings[0][0], strings[1][0]
+    want = np.clip(enc["x_hat_enc"][0] * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    row = {"frame": list(frame.shape), "bpp": enc["bpp"], "cli_s": secs,
+           "file_is_v3": stream_is_global(y) and not stream_is_unified(y)
+           and len(z) > 0, "file_equals_in_process": same_file,
+           "png_equals_encoder_x_hat": bool(np.array_equal(png, want))}
+    if not (row["file_is_v3"] and same_file
+            and row["png_equals_encoder_x_hat"]):
+        raise AssertionError(f"the v3 CLIs: {row}")
+    return row
+
+
+def ab_stream_format_cli() -> dict:
+    """``python -m mlic_tpu_torch.tools.ab_stream_format`` at batch 8, 2
+    segments of each format in each regime (a subprocess): its JSON
+    line, every segment bit-exact."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mlic_tpu_torch.tools.ab_stream_format",
+         "--batch", str(BATCH), "--reps", "2"], cwd=REPO,
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"tools.ab_stream_format failed "
+                             f"({proc.returncode}): {proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["cli_s"] = time.perf_counter() - t0
+    if not out["bit_exact"]:
+        raise AssertionError("ab_stream_format: a segment not bit-exact")
+    return out
+
+
+def fallback_kernels(codec, param_k4: dict) -> list:
+    """K7's y-gather mode and K4's row mode on y phases against their
+    plain versions on the card, exact, on a payload of the serving shapes
+    (3% escapes) over fallback B's tables (width 3,136, 12 levels): K7 on
+    the whole batch, K4 on the z phase and all 2 * slice_num y phases of
+    the payload's streams, which must decode to the payload.  Timed; the
+    kernels line's rows.  ``param_k4`` is K4's parametric row of this run
+    (its queued ms a y phase is printed beside the row mode's)."""
+    import torch
+
+    from mlic_tpu_torch.codec import encode_rans_v4
+    from mlic_tpu_torch.entropy import device_rans as dr
+    from mlic_tpu_torch.entropy.stream import assemble_streams
+    dev = codec.device
+    cfg = codec.model.cfg
+    tables = codec.tables
+    n_phases = 2 * cfg.slice_num
+    sym, idx, z = (torch.from_numpy(a).to(dev) for a in make_payload(
+        codec, np.random.default_rng(SEED + 10)))
+    prep_args = (sym, idx, z, tables, codec.z_rows_base, cfg.N)
+    got = dr.rans_encode_prep(*prep_args, y_gather=True)
+    ref = dr.encode_prep_plain(*prep_args, y_gather=True)
+    err = max_abs_err((g, r) for gs, rs in zip(got, ref)
+                      for g, r in zip(gs, rs))
+    if err != 0.0:
+        raise AssertionError(f"K7 gather mode differs from its plain "
+                             f"version (max abs err {err})")
+    n_y, n_zt = sym.numel(), z.numel()
+    width = tables["cdf_rows"].shape[1]
+    table_bytes = tables["cdf_rows"].numel() * 4 + 8 * tables[
+        "cdf_rows"].shape[0]
+    call = functools.partial(dr.rans_encode_prep, *prep_args, y_gather=True)
+    bms, by = bound(17 * n_y + 13 * n_zt + table_bytes, 0)
+    rows = [{"name": "rans_encode_prep", "mode": "y_gather", "route": "cuda",
+             "source": "mlic_tpu_torch/csrc/rans_encode_prep.cu",
+             "replaces": "mlic_tpu/entropy/device_rans.py:468",
+             "launches": 0, "status": "exact", "max_abs_err": err,
+             "ms": cuda_ms(call, 20),
+             "plain_ms": cuda_ms(functools.partial(
+                 dr.encode_prep_plain, *prep_args, y_gather=True), 5),
+             "bound_ms": bms, "bound_by": by, "library_ms": None,
+             "bound_ms_entries_per_position": bound(
+                 25 * n_y + 21 * n_zt, 0)[0],
+             "kernel_ms": kernel_ms(call, KERNEL_SYMBOLS["rans_encode_prep"]),
+             "queued_ms": queued_ms(call), "shape": [BATCH, n_y // BATCH +
+                                                     n_zt // BATCH],
+             "width": width}]
+
+    comp = encode_rans_v4(sym, idx, z, tables, N_LANES, n_phases,
+                          codec.z_rows_base, y_gather=True)
+    err, (call, plain, rws, got1, ptr0) = decode_phases(
+        codec, assemble_streams(comp, N_LANES), idx, z,
+        dr.encode_layout_plain(z, sym, N_LANES, n_phases, 0), False)
+    if err != 0.0:
+        raise AssertionError(f"K4 row mode differs from its plain version "
+                             f"(max abs err {err})")
+    P = rws.numel()
+    consumed = int((got1[3] - ptr0).sum())
+    bms, by = bound(4 * P + 5 * P + 2 * consumed + 16 * rws.shape[1]
+                    + 8 * BATCH + table_bytes, P * (2 * codec.n_steps + 20))
+    # the bound by its chain, as K3's: each step of a lane waits on its
+    # search, ceil(levels / log2 T) - 1 rounds of loads of the rows after
+    # the first (which does not depend on the state), then the word read;
+    # the rows (815 KB) outgrow an SM's L1, so each load is an L2 hit at
+    # least
+    group = dr.decode_group(N_LANES)
+    rounds = -(-codec.n_steps // (group.bit_length() - 1))
+    mhz = sm_clock_max_mhz()
+    chain_ms = rws.shape[0] * rounds * L2_HIT_CYCLES / (mhz * 1e3)
+    rows.append({"name": "rans_decode_phase", "mode": "y_rows",
+                 "route": "cuda", "source": "mlic_tpu_torch/csrc/rans_decode.cu",
+                 "replaces": "mlic_tpu/entropy/device_rans.py:217",
+                 "launches": 0, "status": "exact", "max_abs_err": err,
+                 "ms": cuda_ms(call, 10), "plain_ms": cuda_ms(plain, 1),
+                 "bound_ms": bms, "bound_by": by, "library_ms": None,
+                 "kernel_ms": kernel_ms(call,
+                                        KERNEL_SYMBOLS["rans_decode_phase"]),
+                 "queued_ms": queued_ms(call), "shape": list(rws.shape),
+                 "levels": codec.n_steps, "width": width,
+                 "phases_checked": n_phases + 1,
+                 "chain_bound_ms": chain_ms,
+                 "chain_loads_a_step": rounds, "steps": rws.shape[0],
+                 "threads_per_lane": group, "l2_hit_cycles": L2_HIT_CYCLES,
+                 "sm_clock_max_mhz": mhz,
+                 "parametric_queued_ms": param_k4["queued_ms"]})
+    return rows
+
+
+def encode_global_v3(codec, sym, idx) -> list:
+    """The port's host ``encode_global`` of each image's y phases (int32
+    [B, n_y] symbols and scale indexes, phase-major), each phase padded to
+    a lane multiple with pad-row symbols, over the codec's Gaussian rows:
+    the oracle of the device encoder's v3 y streams."""
+    from mlic_tpu_torch.entropy.rans.coder import encode_global
+    _, lengths, offsets, table = codec._gauss
+    n_phases = 2 * codec.model.cfg.slice_num
+    n_per = sym.shape[1] // n_phases
+    pad = -n_per % codec.n_lanes
+    sym = np.pad(sym.reshape(len(sym), n_phases, n_per),
+                 ((0, 0), (0, 0), (0, pad)))
+    idx = np.pad(idx.reshape(len(idx), n_phases, n_per),
+                 ((0, 0), (0, 0), (0, pad)),
+                 constant_values=codec.z_rows_base - 1)
+    return [encode_global(s_b.ravel(), i_b.ravel(), codec.n_lanes, table,
+                          lengths, offsets) for s_b, i_b in zip(sym, idx)]
+
+
+def codec_paths(model, codec, frames, kernels) -> dict:
+    """Path 10, the codec's other paths (the ``codec_paths`` line), on path
+    1's trained MLICPP_S codec settings and frames: (1) format v3 coded on
+    the card, 3 batches bit-exact with each request's launches exact
+    (``v3_request_launches``), the y streams the port's ``encode_global``
+    of the phase symbols, bpp beside v4's, ms a direction and the host z
+    coder's share, an image of a batch decoded alone by ``tools.decode``;
+    (2) fallback A forced (``self_check_encode``), path 1's bytes with K7
+    in gather mode; (3) fallback B forced (``validate_tables``), bit-exact
+    at v4 and v3 over 3 batches, bpp beside the parametric table's, and
+    K7's gather mode and K4's row mode against their plain versions
+    (``fallback_kernels``: the kernels line's two rows); (4) the CLIs:
+    ``tools.test`` and ``tools.decode`` under ``MLIC_UNIFIED_Z=0`` and
+    ``tools.ab_stream_format``.  Returns the launch counts of the path."""
+    import torch
+
+    from mlic_tpu_torch.codec import Codec
+    from mlic_tpu_torch.ops import _build
+    t_path = time.perf_counter()
+    cfg = model.cfg
+    x = frames[0]
+
+    def make(**env):
+        with EnvSet(**env):
+            c = Codec(model, n_lanes=N_LANES, device="cuda")
+            c.update()
+        return c
+
+    _build.reset_launch_counts()
+    v3 = make(MLIC_UNIFIED_Z="0")
+    v3_rows, enc3 = coded_requests(v3, frames, "v3",
+                                   v3_request_launches(cfg))
+    with torch.no_grad():
+        _, sym, idx = model.codec_encode_pass(*model.analyze(
+            v3._images(x)))
+    packed = encode_global_v3(v3, sym.cpu().numpy(), idx.cpu().numpy())
+    v3_out = {"requests": v3_rows,
+              "streams_equal_encode_global": packed == enc3["strings"][0],
+              "v4_bpp": stream_stats(codec, codec.compress(x))["bpp"],
+              **staged_shares(v3, x, {"compress": "z_encode",
+                                      "decompress": "z_decode"}),
+              "container_alone_entries_differing": v3_container_alone(
+                  model, enc3)}
+    print(json.dumps({"codec_paths_v3": v3_out}), flush=True)
+
+    with Forced("self_check_encode"):
+        fa = make()
+    if not fa.parametric or fa.analytic_enc_rows:
+        raise AssertionError("fallback A not taken")
+    a_rows, _ = coded_requests(fa, frames[:1], "fallback_A", ref=codec)
+    with Forced("validate_tables"):
+        fb = make()
+        fb3 = make(MLIC_UNIFIED_Z="0")
+    if fb.parametric or "row_params" in fb.tables:
+        raise AssertionError("fallback B not taken")
+    b_rows, _ = coded_requests(fb, frames, "fallback_B_v4")
+    b3_rows, _ = coded_requests(fb3, frames, "fallback_B_v3")
+    k4 = next(k for k in kernels if k["name"] == "rans_decode_phase")
+    fb_kernels = fallback_kernels(fb, k4)
+    # launches in the mode: K7 in each fallback request; K4 on y phases in
+    # B's requests (a v4 request's first K4 is its z phase)
+    fb_kernels[0]["launches"] = sum(r["launches"]["rans_encode_prep"]
+                                    for r in a_rows + b_rows + b3_rows)
+    fb_kernels[1]["launches"] = sum(r["launches"]["rans_decode_phase"]
+                                    for r in b_rows + b3_rows) - len(b_rows)
+    print(json.dumps({"codec_paths_fallback_kernels": fb_kernels}),
+          flush=True)
+
+    counts = _build.launch_counts()
+    clis = v3_clis(model, x[0])
+    ab = ab_stream_format_cli()
+    out = {"model": MODEL, "weights": "trained (ckpts/bench_default)",
+           "transform_dtype": "bfloat16", "lanes": N_LANES,
+           "v3": v3_out,
+           "fallback_A": {"requests": a_rows},
+           "fallback_B": {"v4": b_rows, "v3": b3_rows,
+                          "parametric_bpp": {"v4": v3_out["v4_bpp"],
+                                             "v3": v3_rows[0]["bpp"]},
+                          "levels": fb.n_steps,
+                          "width": fb.tables["cdf_rows"].shape[1]},
+           "clis": clis, "ab_stream_format": ab,
+           "launches": counts, "path_s": time.perf_counter() - t_path}
+    print(json.dumps({"codec_paths": out}), flush=True)
+    bad = [k for k, v in (("v3 streams equal encode_global",
+                           v3_out["streams_equal_encode_global"]),
+                          ("v3 container alone",
+                           not v3_out["container_alone_entries_differing"]))
+           if not v]
+    if bad:
+        raise AssertionError(f"path 10: {bad}")
+    return counts, fb_kernels
+
+
 def rd_vbr_path() -> dict:
     """``tools.rd_vbr`` on path 4's MLICPP_S_VBR (the trained MLICPP_S
     through ``load_matching``) under ``bfloat16``: RD_VBR_FRAMES frames
@@ -2889,6 +3339,7 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     os.environ.pop(FUSED_SWITCH, None)      # path 1 runs the unfused tails
+    os.environ.pop("MLIC_UNIFIED_Z", None)  # format v4
     # the CLIs' dead-leaves pools render once into a directory of this run
     pool_cache = tempfile.TemporaryDirectory()
     os.environ["MLIC_POOL_CACHE"] = pool_cache.name
@@ -2910,8 +3361,14 @@ def main() -> int:
     _build.reset_launch_counts()
     codec = Codec(model, n_lanes=N_LANES, device="cuda")
     t0 = time.perf_counter()
-    codec.update()          # raises unless both self-checks pass
-    print(json.dumps({"update_s": time.perf_counter() - t0}), flush=True)
+    codec.update()
+    print(json.dumps({"update_s": time.perf_counter() - t0,
+                      "parametric": codec.parametric,
+                      "analytic_enc_rows": codec.analytic_enc_rows}),
+          flush=True)
+    if not codec.parametric or not codec.analytic_enc_rows:
+        raise AssertionError("Codec.update took a fallback on the main "
+                             "path: the parametric table failed a check")
     in_update = _build.launch_counts()
     serve(codec, frames, cfg=model.cfg)      # each request's launches exact
     counts = _build.launch_counts()
@@ -2938,6 +3395,7 @@ def main() -> int:
     check_small_reference(state)
     host_counts = host_coded_path(state, model, frames, codec)
     pipe_counts = pipeline_path(model, codec, frames)
+    paths_counts, fb_kernels = codec_paths(model, codec, frames, kernels)
     trainer, train_counts = train_path(state)
     after = serve_after_training(trainer, frames[0])
     del trainer
@@ -2960,6 +3418,7 @@ def main() -> int:
                                  "small_decoder": sd_counts[k["name"]],
                                  "host_coded": host_counts[k["name"]],
                                  "serve_pipeline": pipe_counts[k["name"]],
+                                 "codec_paths": paths_counts[k["name"]],
                                  "rd_vbr": rd_counts[k["name"]],
                                  "train_L": l_train_counts[k["name"]],
                                  "train_small_decoder_frozen":
@@ -2972,6 +3431,9 @@ def main() -> int:
             f"level_{s}": sum(p[ph]["port_kernels_ms_launches"][k["name"]][0]
                               for ph in ("compress", "decompress"))
             for s, p in vbr_profiles.items()}
+    for k in fb_kernels:
+        k["launches_by_path"] = {"codec_paths": k["launches"]}
+    kernels += fb_kernels
     pool_cache.cleanup()
     os.environ.pop("MLIC_POOL_CACHE")
     print(card, flush=True)

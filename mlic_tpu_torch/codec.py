@@ -1,16 +1,29 @@
 """The codec: the three backends of ``mlic_tpu/codec.py``.
 
 ``backend="device"`` (the port's default; the JAX package defaults to
-``"steps"``) codes format v4 with both rANS directions on the device:
-``compress`` runs analyze, the encode pass and the on-device rANS encode
-(its prep, K7: z section by integer-row gathers, y phases by the analytic
-Gaussian CDF; K3; K6), then assembles one stream per image;
-``decompress`` parses the streams and runs the format-v4 device decode
-(K4).  The host only parses and assembles bytes.  ``compress`` is
-``compress_end(compress_begin(x))``: the first half queues the device work
-and the copy of the streams to pinned host memory with no host
-synchronization, the second waits for that copy and assembles, so a serving
-loop keeps two batches in flight (``roundtrip_stream``).
+``"steps"``) codes with both rANS directions on the device, format v4 by
+default: ``compress`` runs analyze, the encode pass and the on-device rANS
+encode (its prep, K7: z section by integer-row gathers, y phases by the
+analytic Gaussian CDF or, where ``update`` fell back, by gathers; K3; K6),
+then assembles one stream per image; ``decompress`` parses the streams and
+runs the device decode (K4).  The host only parses and assembles bytes.
+``compress`` is ``compress_end(compress_begin(x))``: the first half queues
+the device work and the copy of the streams to pinned host memory with no
+host synchronization, the second waits for that copy and assembles, so a
+serving loop keeps two batches in flight (``roundtrip_stream``).
+
+One switch, read when a device codec is made, as the JAX package reads
+it: ``MLIC_UNIFIED_Z=0`` writes format v3 -- z coded on the host per
+image into a z string of its own (``compress_end``), y alone in the lane
+stream, coded on the device by the same kernels with an empty z section.
+Two switches of the JAX package are not read.  ``MLIC_DEVICE_ENCODE=0``
+downloads the y symbols and packs v3 on the host: the device encoder
+writes the same bytes, and the JAX package's reasons for the host path
+(the TPU's host link, its int16 narrowing and overflow redo) do not apply
+to a card, so the port always codes on the device;
+``entropy.rans.coder.encode_global`` stays as the tests' oracle of the v3
+bytes.  ``MLIC_SPLIT_ENCODE`` (one XLA program or two for the encode) has
+no counterpart in eager PyTorch.
 
 ``backend="steps"`` and ``"fused"`` code as the reference does
 (``compress``/``decompress`` of ``MLIC++/models/mlicpp.py``): z with the
@@ -26,19 +39,32 @@ and one program a step (``steps``) has no counterpart in eager PyTorch, so
 ``fused`` is kept as a name only.  The step methods run the phase helpers
 of the device path's slice loop, so every backend computes the same y_hat.
 
-The backend chooses how ``compress`` codes; ``decompress`` reads either
-kind of stream whatever the codec's backend: a format-v4 stream carries
-its z in the y stream and an empty z string, the reference's a z string
-of its own.
+``decompress`` reads three kinds of stream, whatever the codec's backend
+or format, and tells them apart per batch: empty z strings mean format v4
+(z inline in the y stream); z strings with y streams that carry bit 31
+but not bit 30 and whose length is exactly what their header gives
+(``entropy.stream.stream_is_global``) mean format v3, decoded on the
+device with z from the host; any other streams are the reference's, decoded
+on the host.  The length matters: a host-coded y stream opens with the low
+word of a rans64 state, so its bit 31 is set about half the time.
 
 ``update`` builds the tables: for every backend the Gaussian tables
 (``GaussianConditionalTables``) and the factorized prior's; for the device
-backend (or on the first format-v4 stream a host-coded codec decodes) also
-the Gaussian row parameters, the integer table generated from them on the
-codec's device, and the combined rows, so one stream carries z and y.
-That table must be rANS-valid and pass the decode- and encode-shaped
-self-checks, else ``update`` raises with the count of entries that differ
--- there is no host-table fallback.
+backend (or on the first format-v3/v4 stream a host-coded codec decodes)
+also the Gaussian row parameters, the integer table generated from them on
+the codec's device, and the combined rows, so one stream carries z and y.
+The table is checked as the JAX package checks it (``codec.py:572-609``):
+it must be rANS-valid (``validate_tables``) and pass the decode-shaped
+``self_check``, else the codec falls back to the host-built tables
+(fallback B: ``parametric`` False, y coded by its integer rows both ways);
+if only the encode-shaped ``self_check_encode`` fails, the table stays and
+y's (start, freq) are gathered from its rows (fallback A:
+``analytic_enc_rows`` 0).  A fallback warns once an ``update``, naming the
+check and the count that differed.  Every ``update`` generates and checks
+the table anew: the JAX package's disk cache (``MLIC_TABLE_CACHE``) saved
+TPU round trips of minutes, and on the card a cold ``update`` takes tens
+of milliseconds, so the port keeps none and a failed check is retried by
+the next ``update``.
 
 Variable-bitrate models code at a gain level ``s`` (or a continuous
 ``inputscale``): the gain scales the symbols and the rows on the device,
@@ -50,7 +76,9 @@ rows.
 
 from __future__ import annotations
 
+import os
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -77,6 +105,8 @@ from mlic_tpu_torch.entropy.rans import (
 from mlic_tpu_torch.entropy.stream import (
     pack_streams,
     parse_global,
+    stream_is_damaged_global,
+    stream_is_global,
     stream_is_unified,
     stream_lanes,
 )
@@ -84,6 +114,9 @@ from mlic_tpu_torch.models.mlicpp import MLICPlusPlus
 
 MAX_LANES = MAX_ENCODE_LANES   # K3 and K4 take up to 1024 lanes an image
 SELF_CHECK_LANES = 512         # layout width of update's decode-shaped check
+CHECKS = ("validate_tables", "self_check", "self_check_encode")
+_CHECK_UNITS = {"validate_tables": "rows", "self_check": "entries",
+                "self_check_encode": "entries"}
 
 
 def auto_lanes(cfg, h: int, w: int, max_lanes: int = 256,
@@ -105,19 +138,24 @@ def auto_lanes(cfg, h: int, w: int, max_lanes: int = 256,
 
 
 def encode_rans_v4(sym32, idx, z_flat, tables: dict, n_lanes: int,
-                   n_phases: int, z_rows_base: int) -> dict:
+                   n_phases: int, z_rows_base: int,
+                   y_gather: bool = False) -> dict:
     """On-device rANS encode of one batch, format v4, in three launches and
     no host synchronization: the prep (K7) turns the y symbols and scale
     indexes (int32 [B, n_y], NHWC raveled) and the hyper-latent z_flat
     (int32 [B, zh*zw*N], coded first with the factorized-prior rows at
     ids ``z_rows_base + channel``) into (start, freq-1, escape) sections in
     the caller's [B, n] layout; the scan (K3) reads them in place and the
-    compaction (K6) lays out the per-image word blocks and escapes.
-    Returns the dict that ``entropy.stream.assemble_streams`` reads."""
+    compaction (K6) lays out the per-image word blocks and escapes.  With
+    an empty z_flat ([B, 0]) it writes the y phases of format v3.
+    ``y_gather``: y's entries by gathers from the integer rows (``update``'s
+    fallbacks).  Returns the dict that ``entropy.stream.assemble_streams``
+    reads."""
     z_flat, sym32 = z_flat.contiguous(), sym32.contiguous()
     n_z_rows = tables["cdf_rows"].shape[0] - z_rows_base
     (st_z, fm_z, esc_z), (st_y, fm_y, esc_y) = rans_encode_prep(
-        sym32, idx.contiguous(), z_flat, tables, z_rows_base, n_z_rows)
+        sym32, idx.contiguous(), z_flat, tables, z_rows_base, n_z_rows,
+        y_gather)
     x, words, masks = rans_encode_scan(st_z, fm_z, st_y, fm_y, n_lanes,
                                        n_phases)
     return rans_encode_compact(x, words, masks, esc_z, z_flat, esc_y, sym32,
@@ -180,7 +218,10 @@ class Codec:
     a codec that decodes first, from the first stream's header.  Serving
     passes an explicit 512.  ``encode_recon=False`` drops the encode-side synthesis (``x_hat``
     is then None in ``compress``'s result).  ``device``: None means
-    CUDA."""
+    CUDA.  A device codec reads ``MLIC_UNIFIED_Z`` here (``unified_z``:
+    format v4, or v3 with z coded on the host).
+    ``parametric`` and ``analytic_enc_rows`` say, after ``update``, which
+    tables the device codes with (the JAX package's names)."""
 
     def __init__(self, model: MLICPlusPlus, n_lanes: int | str = "auto",
                  device=None, backend: str = "device",
@@ -201,6 +242,11 @@ class Codec:
         self._auto_resolved = False
         self._warned_auto_width = False
         self.model = model.to(self.device).eval()
+        # the host-coded backends write the reference's streams, not v4
+        self.unified_z = backend == "device" and os.environ.get(
+            "MLIC_UNIFIED_Z", "1") == "1"
+        self.parametric = False     # set by update (device tables)
+        self.analytic_enc_rows = 0  # Gaussian rows K7 codes analytically
         self._gc = None             # GaussianConditionalTables
         self._x = _ExchangeState()
         self.tables = None          # the device backend's combined tables
@@ -217,11 +263,15 @@ class Codec:
         self._esc_bucket = 0        # ratcheted (compress_end)
 
     @torch.no_grad()
-    def update(self, scale_table: np.ndarray | None = None) -> None:
+    def update(self, scale_table: np.ndarray | None = None,
+               force: bool = True) -> bool:
         """Build the tables (codec.py:419): the Gaussian and factorized
         prior's host tables for every backend; for the device backend the
-        checked parametric table and the combined device tables (codec.py:
-        519, 440)."""
+        checked parametric table, or a fallback, and the combined device
+        tables (codec.py:519, 440).  With ``force=False`` a codec that has
+        its tables keeps them; returns whether it built them."""
+        if self._gc is not None and not force:
+            return False
         st = get_scale_table() if scale_table is None else scale_table
         self._gc = GaussianConditionalTables.create(st)
         self._x.tables = (self._gc.quantized_cdf, self._gc.cdf_length,
@@ -230,29 +280,62 @@ class Codec:
         self._scale_table, self._gauss = st, None
         if self.backend == "device":
             self._update_device()
+        return True
 
-    def _update_device(self) -> None:
-        """The device tables of format v4 at ``update``'s scale table."""
-        params, lengths, offsets = parametric.gaussian_row_params(
-            self._scale_table)
+    def _checked_table(self, params, lengths) -> tuple:
+        """The parametric table generated on the codec's device and its
+        verdicts {check: entries or rows that differ, -1 where not run},
+        checked as codec.py:572-583 does: the encode-shaped check runs only
+        on a table that passed the other two."""
         params_t = torch.as_tensor(params, device=self.device)
         table = parametric.generate_tables(params_t, lengths)
-        checks = {
-            "validate_tables (rows)": parametric.validate_tables(
-                table, lengths),
-            "self_check (entries)": parametric.self_check(
-                params_t, table, lengths, SELF_CHECK_LANES),
-            "self_check_encode (entries)": parametric.self_check_encode(
-                params_t, table, lengths),
-        }
-        failed = {k: v for k, v in checks.items() if v}
+        verdicts = dict.fromkeys(CHECKS, -1)
+        verdicts["validate_tables"] = parametric.validate_tables(table,
+                                                                 lengths)
+        if not verdicts["validate_tables"]:
+            verdicts["self_check"] = parametric.self_check(
+                params_t, table, lengths, SELF_CHECK_LANES)
+        if not verdicts["self_check"]:
+            verdicts["self_check_encode"] = parametric.self_check_encode(
+                params_t, table, lengths)
+        return table, verdicts
+
+    def _update_device(self) -> None:
+        """The device tables at ``update``'s scale table (codec.py:519):
+        the parametric table if it passes every check; fallback A (the
+        table, y's entries gathered from its rows) if only
+        ``self_check_encode`` fails; fallback B (the host-built
+        largest-remainder tables and a pad row [0, 2^16-1, 2^16] of length
+        3, codec.py:599-609; y coded by its integer rows both ways) if
+        ``validate_tables`` or ``self_check`` fails."""
+        params, lengths, offsets = parametric.gaussian_row_params(
+            self._scale_table)
+        table, verdicts = self._checked_table(params, lengths)
+        failed = [(k, v) for k, v in verdicts.items() if v > 0]
+        if failed and failed[0][0] != "self_check_encode":
+            n, t = self._gc.quantized_cdf.shape
+            table = np.zeros((n + 1, t), np.int32)
+            table[:n] = self._gc.quantized_cdf
+            table[n, :3] = [0, (1 << 16) - 1, 1 << 16]
+            lengths = np.append(self._gc.cdf_length, 3).astype(np.int32)
+            offsets = np.append(self._gc.offset, 0).astype(np.int32)
+            params = None
+            self.parametric, self.analytic_enc_rows = False, 0
+            self.n_steps = int(np.ceil(np.log2(np.max(lengths))))
+            what = "the host-built tables, y coded by its integer rows"
+        else:
+            self.parametric = True
+            self.analytic_enc_rows = 0 if failed else params.shape[0]
+            self.n_steps = parametric.bisect_steps(lengths)
+            what = "gathers of the table's rows for y's encode"
         if failed:
-            raise RuntimeError(f"parametric CDF table rejected: {failed} "
-                               "differ")
+            name, count = failed[0]
+            warnings.warn(f"Codec.update: the parametric CDF table failed "
+                          f"{name} ({count} {_CHECK_UNITS[name]} differ); "
+                          f"falling back to {what}", stacklevel=4)
         self._gauss = (params, lengths, offsets, table)
         self._width = 0
         self._by_step = {}
-        self.n_steps = parametric.bisect_steps(lengths)
         self.z_rows_base = table.shape[0]
         self.tables = self._tables_for(1.0)
 
@@ -409,9 +492,10 @@ class Codec:
         pass, the rANS encode and the copy of its counts and speculative
         word and escape prefixes to pinned host memory, with no host
         synchronization once the tables and the level's z step exist.
-        Returns the handle ``compress_end`` takes.  A later batch's
-        ``compress_begin`` may come before this one's ``compress_end``:
-        the device runs the two in the order they were queued."""
+        Format v3 also queues the copy of z.  Returns the handle
+        ``compress_end`` takes.  A later batch's ``compress_begin`` may
+        come before this one's ``compress_end``: the device runs the two in
+        the order they were queued."""
         if self.backend != "device":
             raise ValueError("compress_begin/compress_end split the device "
                              f"backend; this codec is {self.backend!r}")
@@ -433,12 +517,16 @@ class Codec:
                                                          z_qs)
         t = self._stage(timings, "encode_pass", t)
         b, zh, zw, _ = z_symbols.shape
-        comp = encode_rans_v4(sym32, idx, z_symbols.reshape(b, -1),
-                              tables, self.n_lanes,
-                              2 * self.model.cfg.slice_num, self.z_rows_base)
+        z_flat = z_symbols.reshape(b, -1)
+        comp = encode_rans_v4(
+            sym32, idx, z_flat if self.unified_z else z_flat[:, :0],
+            tables, self.n_lanes, 2 * self.model.cfg.slice_num,
+            self.z_rows_base, y_gather=not self.analytic_enc_rows)
         parts = [torch.cat([comp["img_n"], comp["ecount"]]),
                  comp["buf"][:self._words_bucket],
                  comp["ebuf"][:self._esc_bucket]]
+        if not self.unified_z:
+            parts.append(z_flat)
         done = None
         if self.device.type == "cuda":
             host = [torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
@@ -450,23 +538,43 @@ class Codec:
             done.record()
         self._stage(timings, "rans_encode", t)
         return {"comp": comp, "host": parts, "done": done, "y_hat": y_hat,
-                "shape": (zh, zw), "t0": t0}
+                "shape": (zh, zw), "z_qs": z_qs, "t0": t0}
 
     @torch.no_grad()
     def compress_end(self, h: dict, timings: dict | None = None) -> dict:
         """The host half (codec.py:844): waits for ``compress_begin``'s
         copy, fetches the rest of the words or escapes where a stream
         outgrew the speculative prefix (which then grows, so a session
-        does so a few times), assembles the format-v4 streams and queues
-        the encode-side synthesis.  Returns ``compress``'s result;
-        ``x_hat`` may still be in flight."""
+        does so a few times), assembles the streams, codes format v3's z
+        strings on the host, and queues the encode-side synthesis.
+        Returns ``compress``'s result; ``x_hat`` may still be in flight.
+        A ``timings`` dict gets the host's stages: assemble, z_encode (v3)
+        and synthesize."""
         t = time.perf_counter()
         if h["done"] is not None:
             h["done"].synchronize()
-        counts, buf, ebuf = (p.numpy() for p in h["host"])
+        host = [p.numpy() for p in h["host"]]
+        streams = self._assemble(h["comp"], *host[:3])
+        t = self._stage(timings, "assemble", t)
+        zh, zw = h["shape"]
+        if self.unified_z:
+            z_strings = [b""] * len(streams)
+        else:
+            z_strings = self._encode_z(host[-1].reshape(
+                len(streams), zh, zw, -1), h["z_qs"])
+            t = self._stage(timings, "z_encode", t)
+        y_hat = h["y_hat"]
+        x_hat = self.model.synthesize(y_hat) if self.encode_recon else None
+        self._stage(timings, "synthesize", t)
+        return {"strings": [streams, z_strings],
+                "shape": h["shape"], "y_hat": y_hat, "x_hat": x_hat,
+                "cost_time": time.perf_counter() - h["t0"]}
+
+    def _assemble(self, comp: dict, counts, buf, ebuf) -> list:
+        """The device encoder's streams from the downloaded counts and
+        speculative prefixes, the rest fetched where they fall short."""
         img_n, ecount = np.split(counts.astype(np.int64), 2)
         n_w, n_e = int(img_n.sum()), int(ecount.sum())
-        comp = h["comp"]
         if n_w > len(buf):
             buf = comp["buf"][:n_w].cpu().numpy()
         if n_e > len(ebuf):
@@ -475,15 +583,8 @@ class Codec:
             _download_bucket(n_w), comp["buf"].numel()))
         self._esc_bucket = max(self._esc_bucket, min(
             _download_bucket(n_e, 1024), comp["ebuf"].numel()))
-        streams = pack_streams(img_n, ecount, buf[:n_w].view(np.uint16),
-                               ebuf[:n_e], self.n_lanes)
-        t = self._stage(timings, "assemble", t)
-        y_hat = h["y_hat"]
-        x_hat = self.model.synthesize(y_hat) if self.encode_recon else None
-        self._stage(timings, "synthesize", t)
-        return {"strings": [streams, [b""] * len(streams)],
-                "shape": h["shape"], "y_hat": y_hat, "x_hat": x_hat,
-                "cost_time": time.perf_counter() - h["t0"]}
+        return pack_streams(img_n, ecount, buf[:n_w].view(np.uint16),
+                            ebuf[:n_e], self.n_lanes, self.unified_z)
 
     def _compress_host_coded(self, x, s: int, inputscale: float) -> dict:
         """The steps and fused backends' compress (codec.py:933-973): z and
@@ -539,18 +640,21 @@ class Codec:
                    timings: dict | None = None, wait: bool = True) -> dict:
         """strings: [y_strings, z_strings] from ``compress``; shape: the z
         spatial dims; ``s`` and ``inputscale`` as the encoder's.  Returns
-        {"x_hat", "y_hat", "cost_time"}, NHWC.  Streams with a z string
-        each are the reference's, decoded on the host as the steps backend
-        codes; streams without are format v4, decoded on the device.  A
-        ``timings`` dict receives the format-v4 decode's ms of each stage,
-        as in ``compress``: parse, entropy_decode, synthesize.
-        ``wait=False`` (format v4) returns once the decode and the
-        synthesis are queued, without waiting for the device: the caller
-        waits for ``x_hat``, and ``cost_time`` then measures the queueing
-        (codec.py:976)."""
+        {"x_hat", "y_hat", "cost_time"}, NHWC.  Empty z strings: format
+        v4, decoded on the device.  z strings and y streams that read as
+        format v3 (``stream_is_global``, not v4): z decoded on the host, y
+        on the device.  Other streams are the reference's, decoded on the
+        host as the steps backend codes.  A ``timings`` dict receives the
+        device decode's ms of each stage, as in ``compress``: parse,
+        z_decode (v3), entropy_decode, synthesize.  ``wait=False`` (formats
+        v3 and v4) returns once the decode and the synthesis are queued,
+        without waiting for the device: the caller waits for ``x_hat``, and
+        ``cost_time`` then measures the queueing (codec.py:976)."""
         t0 = time.perf_counter()
         self._require_tables()
-        if all(strings[1]):
+        y_strings, z_strings = strings
+        v3 = all(z_strings) and self._is_v3(y_strings)
+        if all(z_strings) and not v3:
             out = self._decompress_host_coded(strings, shape, s, inputscale)
             self._sync()
             out["cost_time"] = time.perf_counter() - t0
@@ -558,10 +662,57 @@ class Codec:
         if self._gauss is None:
             self._update_device()
         t = time.perf_counter()
+        words_t, img_begin_t, esc_t, esc_begin_t = self._parse(y_strings,
+                                                              v3)
+        zh, zw = shape
+        scale = self._scale_for(s, inputscale)
+        z_qs = self._z_qs_for(s, inputscale)
+        tables = self._tables_for(z_qs)
+        t = self._stage(timings, "parse", t)
+        if v3:
+            z = self._decode_z_host(z_strings, z_qs, zh, zw)
+            t = self._stage(timings, "z_decode", t)
+            y_hat = self.model.codec_device_pass(
+                self._to_device(z), words_t, img_begin_t, tables,
+                self.n_lanes, self.n_steps, self.z_rows_base - 1, esc_t,
+                esc_begin_t, scale, z_qs)
+        else:
+            y_hat = self.model.codec_device_pass_v4(
+                int(zh), int(zw), words_t, img_begin_t, tables,
+                self.n_lanes, self.n_steps, self.z_steps_row,
+                self.z_rows_base, esc_t, esc_begin_t, scale, z_qs)
+        t = self._stage(timings, "entropy_decode", t)
+        x_hat = self.model.synthesize(y_hat)
+        self._stage(timings, "synthesize", t)
+        if wait:
+            self._sync()
+        return {"x_hat": x_hat, "y_hat": y_hat,
+                "cost_time": time.perf_counter() - t0}
+
+    @staticmethod
+    def _is_v3(y_strings) -> bool:
+        """Whether y streams that come with z strings are format v3 (each
+        ``stream_is_global`` and not v4) or the reference's (none is);
+        raises for a v3 or v4 stream that was cut or padded, or a batch of
+        both kinds."""
+        kinds = set()
+        for y in y_strings:
+            if stream_is_damaged_global(y):
+                raise ValueError("a format-v3/v4 stream whose length is not "
+                                 "its header's: truncated or padded")
+            kinds.add(stream_is_global(y) and not stream_is_unified(y))
+        if len(kinds) > 1:
+            raise ValueError("a batch of format-v3 and host-coded streams")
+        return kinds == {True}
+
+    def _parse(self, y_strings, v3: bool) -> tuple:
+        """Format-v3 or v4 streams -> (words int16, img_begin int32, escape
+        values int32, esc_begin int32) on the device; a decode-only codec
+        takes its lane count from the first header."""
         words, img_begin, escs, esc_begin = [], [], [], []
         n_words = n_esc = 0
-        for stream in strings[0]:
-            if not stream_is_unified(stream):
+        for stream in y_strings:
+            if not v3 and not stream_is_unified(stream):
                 raise ValueError("not a format-v4 stream, and a stream of "
                                  "the steps backend carries a z string")
             lanes = stream_lanes(stream)
@@ -588,25 +739,9 @@ class Codec:
         def i32(a):
             return self._to_device(np.asarray(a, np.int32))
 
-        words_t = self._to_device(np.concatenate(words).view(np.int16))
-        esc_t = i32(np.concatenate(escs) if n_esc else np.zeros(1))
-        zh, zw = shape
-        img_begin_t, esc_begin_t = i32(img_begin), i32(esc_begin)
-        scale = self._scale_for(s, inputscale)
-        z_qs = self._z_qs_for(s, inputscale)
-        tables = self._tables_for(z_qs)
-        t = self._stage(timings, "parse", t)
-        y_hat = self.model.codec_device_pass_v4(
-            int(zh), int(zw), words_t, img_begin_t, tables,
-            self.n_lanes, self.n_steps, self.z_steps_row, self.z_rows_base,
-            esc_t, esc_begin_t, scale, z_qs)
-        t = self._stage(timings, "entropy_decode", t)
-        x_hat = self.model.synthesize(y_hat)
-        self._stage(timings, "synthesize", t)
-        if wait:
-            self._sync()
-        return {"x_hat": x_hat, "y_hat": y_hat,
-                "cost_time": time.perf_counter() - t0}
+        return (self._to_device(np.concatenate(words).view(np.int16)),
+                i32(img_begin), i32(np.concatenate(escs) if n_esc
+                                    else np.zeros(1)), i32(esc_begin))
 
     def _decompress_host_coded(self, strings, shape, s: int,
                                inputscale: float) -> dict:

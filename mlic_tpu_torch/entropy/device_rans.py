@@ -9,8 +9,9 @@ per image, 2*n_lanes state words, then the renorm words in the decoder's
 an int32 side channel.
 
 Kernels here: K7 ``rans_encode_prep`` (replaces ``analytic_start_freq``,
-:419, and ``_gather_start_freq``, :468, with the row select of
-``select_rows`` in its shared memory), K3 ``rans_encode_scan`` (replaces
+:419, with the row select of ``select_rows`` in its shared memory, and
+``_gather_start_freq``, :468, for the z section and, where ``Codec.update``
+fell back, for y), K3 ``rans_encode_scan`` (replaces
 ``encode_scan_prepped``, :525, and the ``phase_order`` layout in front of
 it), K6 ``rans_encode_compact`` (replaces ``compact_streams_global``, :602)
 and K4 ``rans_decode_phase`` (replaces the ``lax.scan`` of
@@ -48,21 +49,28 @@ def u16_bits(t: torch.Tensor) -> torch.Tensor:
     return (t.to(torch.int32) & _MASK16).to(torch.int16)
 
 
-def parametric_device_tables(params: np.ndarray, cdf_lengths: np.ndarray,
-                             offsets: np.ndarray, cdf_rows: np.ndarray,
-                             device) -> dict:
-    """Device tables (device_rans.py:97): ``row_params`` f32 [n, 6] for the
-    analytic paths, the integer ``cdf_rows`` for the encoder's gathers and
-    the z section, ``max_value`` (= length - 2) and ``offsets``."""
+def parametric_device_tables(params: np.ndarray | None,
+                             cdf_lengths: np.ndarray, offsets: np.ndarray,
+                             cdf_rows: np.ndarray, device) -> dict:
+    """Device tables (device_rans.py:63, :97): ``row_params`` f32 [n, 6] for
+    the analytic paths, the integer ``cdf_rows`` for the encoder's gathers
+    and the row-mode decode, ``max_value`` (= length - 2) and ``offsets``.
+    ``params`` None (the host-built tables of ``Codec.update``'s fallback
+    B) leaves ``row_params`` out: every row then codes by its integer row,
+    where the JAX package decodes y through a [n_rows, 65536] LUT
+    (``device_tables``).  The LUT is a ``searchsorted`` of the same rows, so
+    the bisection finds its slot and no LUT is built."""
     i32 = torch.int32
-    return {
-        "row_params": torch.as_tensor(params, dtype=torch.float32,
-                                      device=device),
+    out = {
         "max_value": torch.as_tensor(np.asarray(cdf_lengths) - 2, dtype=i32,
                                      device=device),
         "offsets": torch.as_tensor(offsets, dtype=i32, device=device),
         "cdf_rows": torch.as_tensor(cdf_rows, dtype=i32, device=device),
     }
+    if params is not None:
+        out["row_params"] = torch.as_tensor(params, dtype=torch.float32,
+                                            device=device)
+    return out
 
 
 def analytic_start_freq(sym: torch.Tensor, row: torch.Tensor,
@@ -86,7 +94,8 @@ def analytic_start_freq(sym: torch.Tensor, row: torch.Tensor,
 
 def gather_start_freq(sym: torch.Tensor, row: torch.Tensor, tables: dict):
     """(start, freq-1, esc) by integer-table gathers (device_rans.py:468):
-    the v4 z section's factorized-prior rows."""
+    the v4 z section's factorized-prior rows, and y where ``Codec.update``
+    fell back (``analytic_enc_rows == 0``)."""
     row = row.long()
     mv = tables["max_value"][row]
     v = sym.to(torch.int32) - tables["offsets"][row]
@@ -99,11 +108,12 @@ def gather_start_freq(sym: torch.Tensor, row: torch.Tensor, tables: dict):
 
 def encode_prep_plain(sym, idx, z_flat, tables: dict, z_rows_base: int,
                       n_z_rows: int, select=select_rows_plain,
-                      cdf=eval_cdf_plain):
+                      cdf=eval_cdf_plain, y_gather: bool = False):
     """The plain version of K7: the z section by ``gather_start_freq`` on
     rows ``z_rows_base + j % n_z_rows`` (j the flat index within an
     image), the y section by ``analytic_start_freq`` with ``select`` and
-    ``cdf``.  Returns ((start, freq-1, esc) of z, the same of y)."""
+    ``cdf``, or with ``y_gather`` by ``gather_start_freq`` on rows ``idx``.
+    Returns ((start, freq-1, esc) of z, the same of y)."""
     b, n_z = z_flat.shape
     if n_z:
         z_rows = z_rows_base + torch.arange(n_z, dtype=torch.int32,
@@ -112,37 +122,46 @@ def encode_prep_plain(sym, idx, z_flat, tables: dict, z_rows_base: int,
     else:
         empty = z_flat.new_empty((b, 0), dtype=torch.int32)
         z = (empty, empty.clone(), empty.bool())
+    if y_gather:
+        return z, gather_start_freq(sym, idx, tables)
     return z, analytic_start_freq(sym, idx, tables["row_params"], select, cdf)
 
 
 def rans_encode_prep(sym, idx, z_flat, tables: dict, z_rows_base: int = 0,
-                     n_z_rows: int = 1):
+                     n_z_rows: int = 1, y_gather: bool = False):
     """K7 for CUDA tensors, ``encode_prep_plain`` for CPU tensors: the rANS
     encode's prep in one launch.  ``sym``/``idx`` int32 [B, n_y] y symbols
-    and scale indexes into ``tables["row_params"]`` (f32 [<= 128, 6],
-    staged in the kernel's shared memory); ``z_flat`` int32 [B, n_z] coded
-    with the integer rows ``z_rows_base + j % n_z_rows`` of
-    ``tables["cdf_rows"]`` (with ``max_value``, ``offsets``; read only when
-    n_z > 0).  Returns ((start int32, freq-1 int32, esc bool) of z [B,
-    n_z], the same of y [B, n_y])."""
+    and scale indexes: into ``tables["row_params"]`` (f32 [<= 128, 6],
+    staged in the kernel's shared memory), or with ``y_gather`` into the
+    integer rows ``tables["cdf_rows"]`` (then ``row_params`` is not read and
+    may be absent); ``z_flat`` int32 [B, n_z] (n_z may be 0, format v3)
+    coded with the integer rows ``z_rows_base + j % n_z_rows``.  The
+    integer rows come with ``max_value`` and ``offsets`` and are read only
+    by a gathered section.  Returns ((start int32, freq-1 int32, esc bool)
+    of z [B, n_z], the same of y [B, n_y])."""
     i32 = torch.int32
-    rp = tables["row_params"]
     if sym.dim() != 2 or z_flat.dim() != 2 or z_flat.shape[0] != sym.shape[0]:
         raise ValueError("rans_encode_prep: sym must be [B, n_y] and z_flat "
                          "[B, n_z]")
     B, n_y = sym.shape
     n_z = z_flat.shape[1]
-    if rp.dim() != 2 or rp.shape[1] != 6 or not 1 <= rp.shape[0] <= MAX_ROWS:
-        raise ValueError(f"rans_encode_prep: row_params must be f32 "
-                         f"[<= {MAX_ROWS}, 6], got {tuple(rp.shape)}")
     specs = [(sym, i32, (B, n_y)), (idx, i32, (B, n_y)),
-             (z_flat, i32, (B, n_z)), (rp, torch.float32, tuple(rp.shape))]
-    if n_z:
+             (z_flat, i32, (B, n_z))]
+    rp = None
+    if not y_gather:
+        rp = tables["row_params"]
+        if rp.dim() != 2 or rp.shape[1] != 6 \
+                or not 1 <= rp.shape[0] <= MAX_ROWS:
+            raise ValueError(f"rans_encode_prep: row_params must be f32 "
+                             f"[<= {MAX_ROWS}, 6], got {tuple(rp.shape)}")
+        specs.append((rp, torch.float32, tuple(rp.shape)))
+    n_rows = 0
+    if n_z or y_gather:
         cdf_rows, mv, off = (tables[k] for k in ("cdf_rows", "max_value",
                                                  "offsets"))
         n_rows = cdf_rows.shape[0]
-        if n_z_rows < 1 or z_rows_base < 0 \
-                or z_rows_base + n_z_rows > n_rows:
+        if n_z and (n_z_rows < 1 or z_rows_base < 0
+                    or z_rows_base + n_z_rows > n_rows):
             raise ValueError("rans_encode_prep: z rows outside cdf_rows")
         specs += [(cdf_rows, i32, tuple(cdf_rows.shape)),
                   (mv, i32, (n_rows,)), (off, i32, (n_rows,))]
@@ -152,16 +171,17 @@ def rans_encode_prep(sym, idx, z_flat, tables: dict, z_rows_base: int = 0,
     dev = sym.device
     if dev.type == "cpu":
         return encode_prep_plain(sym, idx, z_flat, tables, z_rows_base,
-                                 n_z_rows)
+                                 n_z_rows, y_gather=y_gather)
     if dev.type != "cuda":
         raise ValueError("rans_encode_prep: inputs must be on a CUDA device")
     outs = [sym.new_empty((B, n), dtype=dt) for n in (n_z, n_y)
             for dt in (i32, i32, torch.bool)]
-    zt = (cdf_rows.data_ptr(), cdf_rows.shape[1], mv.data_ptr(),
-          off.data_ptr()) if n_z else (None, 0, None, None)
+    rt = (None, 0) if rp is None else (rp.data_ptr(), rp.shape[0])
+    zt = (cdf_rows.data_ptr(), cdf_rows.shape[1], n_rows, mv.data_ptr(),
+          off.data_ptr()) if n_rows else (None, 0, 0, None, None)
     PREP_KERNEL.launch(sym.data_ptr(), idx.data_ptr(), z_flat.data_ptr(),
-                       rp.data_ptr(), rp.shape[0], *zt, z_rows_base,
-                       n_z_rows, B, n_y, n_z, *(t.data_ptr() for t in outs),
+                       *rt, int(y_gather), *zt, z_rows_base, n_z_rows, B,
+                       n_y, n_z, *(t.data_ptr() for t in outs),
                        stream_handle(sym))
     return tuple(outs[:3]), tuple(outs[3:])
 

@@ -8,6 +8,12 @@ decodes them back, a phase at a time (``set_stream`` once, then
 ``decode_stream`` per phase), as the reference's ``BufferedRansEncoder`` /
 ``RansDecoder`` (``MLIC++/models/mlicpp.py:215,279-280,306-307``).
 
+``encode_global`` and ``decode_global`` (``coder.py:417-520``) code the
+interleaved format v3 of the device backend on the host, in numpy
+vectorised over the lanes: the tests' and the smoke's oracle of the
+device coder's v3 bytes (the port has no host encode of v3: the device
+writes the same bytes).
+
 The coder is ``rans.cpp`` beside this file, compiled by ``g++`` at first
 use into ``build/host/`` at the repository root, the library named by a
 hash of its source and flags.  The build is safe across processes: a
@@ -31,6 +37,8 @@ import threading
 from pathlib import Path
 
 import numpy as np
+
+from mlic_tpu_torch.entropy.stream import _V3_FLAG, parse_global
 
 SOURCE = Path(__file__).resolve().with_name("rans.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "host"
@@ -337,3 +345,100 @@ def numpy_encode(symbols, indexes, cdfs, cdf_lengths, offsets) -> bytes:
             slot = max_value
         enc.put(int(row[slot]), int(row[slot + 1] - row[slot]))
     return enc.flush()
+
+
+# ---------------------------------------------------------------------------
+# Format v3 on the host: L lockstep rans16 lanes, global emission order
+# ---------------------------------------------------------------------------
+_RANS16_L = 1 << 16
+
+
+def encode_global(symbols, indexes, n_lanes: int, cdfs, cdf_lengths,
+                  offsets) -> bytes:
+    """Format-v3 encode of one image (``coder.py:417``): ``symbols`` and
+    their rows ``indexes`` in position order (step-major, lane-minor), a
+    multiple of ``n_lanes`` long (callers pad each phase with pad-row
+    symbols).  A value outside its row's support advances its lane with
+    the escape slot and travels in the int32 side channel, in position
+    order.  Returns the stream ``entropy.stream.parse_global`` reads."""
+    symbols = _as_i32(symbols).ravel()
+    indexes = _as_i32(indexes).ravel()
+    cdfs = _as_i32(cdfs)
+    cdf_lengths = _as_i32(cdf_lengths).ravel()
+    offsets = _as_i32(offsets).ravel()
+    n = len(symbols)
+    if n % n_lanes or len(indexes) != n:
+        raise ValueError("encode_global: one index a symbol, a multiple of "
+                         "n_lanes of them")
+    S = n // n_lanes
+    sym = symbols.reshape(S, n_lanes)
+    row = indexes.reshape(S, n_lanes)
+    mv = cdf_lengths[row] - 2
+    v = sym - offsets[row]
+    esc = (v < 0) | (v >= mv)
+    slot = np.where(esc, mv, v)
+    start = cdfs[row, slot].astype(np.uint64)
+    freq = cdfs[row, slot + 1].astype(np.uint64) - start
+    x = np.full(n_lanes, _RANS16_L, np.uint64)
+    emits = np.zeros((S, n_lanes), bool)
+    words = np.zeros((S, n_lanes), np.uint16)
+    for s in range(S - 1, -1, -1):          # rANS is LIFO: encode in reverse
+        fr, st = freq[s], start[s]
+        emit = x >= (fr << np.uint64(16))
+        words[s] = (x & np.uint64(_MASK16)).astype(np.uint16)
+        x = np.where(emit, x >> np.uint64(16), x)
+        x = ((x // fr) << np.uint64(PROB_BITS)) + (x % fr) + st
+        emits[s] = emit
+    states = np.empty(2 * n_lanes, np.uint16)
+    states[0::2] = (x >> np.uint64(16)).astype(np.uint16)
+    states[1::2] = (x & np.uint64(_MASK16)).astype(np.uint16)
+    allw = np.concatenate([states, words[emits]])   # (step, lane) order
+    esc_vals = sym[esc].astype(np.int32)
+    header = np.asarray([np.uint32(n_lanes) | _V3_FLAG, len(allw),
+                         len(esc_vals)], dtype=np.uint32).tobytes()
+    body = allw.tobytes()
+    if len(body) % 4:
+        body += b"\x00\x00"
+    return header + body + esc_vals.tobytes()
+
+
+def decode_global(stream: bytes, indexes, cdfs, cdf_lengths,
+                  offsets) -> np.ndarray:
+    """Format-v3 (or v4) decode of ``len(indexes)`` symbols of one stream
+    (``coder.py:482``), at rows ``indexes`` in position order: a bisection
+    over each lane's integer row, then the lanes whose state fell below
+    2^16 read one word each, in lane order.  Returns int32 symbols."""
+    n_lanes, words, esc_vals = parse_global(stream)
+    indexes = _as_i32(indexes).ravel()
+    cdfs = _as_i32(cdfs).astype(np.int64)
+    cdf_lengths = _as_i32(cdf_lengths).ravel()
+    offsets = _as_i32(offsets).ravel()
+    if len(indexes) % n_lanes:
+        raise ValueError("decode_global: a multiple of n_lanes indexes")
+    S = len(indexes) // n_lanes
+    row = indexes.reshape(S, n_lanes)
+    w = words.astype(np.int64)
+    x = (w[0:2 * n_lanes:2] << 16) | w[1:2 * n_lanes:2]
+    ptr = 2 * n_lanes
+    out = np.empty((S, n_lanes), np.int64)
+    esc = np.zeros((S, n_lanes), bool)
+    for s in range(S):
+        r = row[s]
+        cf = x & _MASK16
+        lo = np.zeros(n_lanes, np.int64)
+        hi = cdf_lengths[r].astype(np.int64) - 1     # cdf[hi] = 2^16 > cf
+        while np.any(hi - lo > 1):
+            mid = (lo + hi) >> 1
+            take = cdfs[r, mid] <= cf
+            lo = np.where(take, mid, lo)
+            hi = np.where(take, hi, mid)
+        start = cdfs[r, lo]
+        x = (cdfs[r, lo + 1] - start) * (x >> 16) + cf - start
+        need = x < _RANS16_L
+        pos = np.minimum(ptr + np.cumsum(need) - need, len(w) - 1)
+        x = np.where(need, (x << 16) | w[pos], x)
+        ptr += int(need.sum())
+        esc[s] = lo == cdf_lengths[r] - 2
+        out[s] = lo + offsets[r]
+    out[esc] = esc_vals[:int(esc.sum())]
+    return out.reshape(-1).astype(np.int32)

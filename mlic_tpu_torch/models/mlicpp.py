@@ -443,6 +443,23 @@ class MLICPlusPlus(nn.Module):
                                                              idx)
         return self.codec_finish(state)
 
+    def codec_device_pass(self, z_symbols, words, img_begin, tables,
+                          n_lanes: int, n_steps: int, pad_row: int,
+                          esc_values, esc_begin, scale=1.0, z_qs=1.0):
+        """Format-v3 decode (mlicpp.py:457): ``z_symbols`` int32 NHWC,
+        decoded on the host from each image's z string, then every phase of
+        the stream is a y phase, decoded as in ``_device_pass_from_z``.
+        ``words``, ``img_begin``, ``esc_values`` and ``esc_begin`` as in
+        ``codec_device_pass_v4``; ``pad_row`` the row the encoder padded
+        each phase with, the last Gaussian row (the JAX package counts the
+        rows of its Gaussian-only tables there).  Returns y_hat [B,h,w,M],
+        NHWC."""
+        init, decode = make_decoder(words, n_steps, esc_values, esc_begin,
+                                    n_lanes)
+        return to_nhwc(self._device_pass_from_z(
+            to_nchw(z_symbols.to(torch.int32)), init(img_begin), decode,
+            tables, n_lanes, scale, z_qs, pad_row, n_steps))
+
     def codec_device_pass_v4(self, zh: int, zw: int, words, img_begin, tables,
                              n_lanes: int, n_steps: int, z_steps_row: int,
                              z_rows_base: int, esc_values, esc_begin,
@@ -450,7 +467,8 @@ class MLICPlusPlus(nn.Module):
         """Format-v4 decode (mlicpp.py:496): z from the stream's leading
         phases by integer-row bisection over ``tables['cdf_rows']`` rows
         >= ``z_rows_base`` (the rows of step ``z_qs``), then the y phases
-        parametrically at quantization ``scale``.
+        at quantization ``scale``, parametrically or by rows as the tables
+        say (``_device_pass_from_z``).
 
         words: int16 (uint16 bits), all images' blocks; img_begin int32 [B];
         esc_values/esc_begin: the escape side channel.  Returns y_hat
@@ -471,13 +489,18 @@ class MLICPlusPlus(nn.Module):
         z_sym = (z_sym.reshape(steps, b, n_lanes).permute(1, 0, 2)
                  .reshape(b, -1)[:, :z_n].reshape(b, zh, zw, N))
         return to_nhwc(self._device_pass_from_z(
-            to_nchw(z_sym), carry, decode, tables, n_lanes, scale, z_qs))
+            to_nchw(z_sym), carry, decode, tables, n_lanes, scale, z_qs,
+            z_rows_base - 1, n_steps))
 
     def _device_pass_from_z(self, z_symbols, carry, decode, tables,
-                            n_lanes: int, scale=1.0, z_qs=1.0):
+                            n_lanes: int, scale, z_qs, pad_row: int,
+                            n_steps: int):
         """The y half of the device decode (mlicpp.py:537), NCHW; returns
-        y_hat."""
-        pad_row = tables["row_params"].shape[0] - 1
+        y_hat.  With ``tables["row_params"]`` the y phases decode
+        parametrically; without (``Codec.update``'s fallback B) by an
+        ``n_steps``-level bisection over their integer rows.  Each phase is
+        padded with row ``pad_row``."""
+        steps_row = None if "row_params" in tables else n_steps
         hyper_params = self.h_s(self._z_hat(z_symbols, z_qs))
         state = {"carry": carry}
 
@@ -487,7 +510,8 @@ class MLICPlusPlus(nn.Module):
             b = mu_sq.shape[0]
             ordered = phase_order(nhwc_flat(indexes), n_lanes,
                                   pad_row).contiguous()
-            state["carry"], sym = decode(state["carry"], ordered, tables)
+            state["carry"], sym = decode(state["carry"], ordered, tables,
+                                         n_steps_row=steps_row)
             sym = (sym.reshape(-1, b, n_lanes).permute(1, 0, 2)
                    .reshape(b, -1)[:, :mu_sq[0].numel()])
             return self._recon_flat(sym, mu_sq, sc_sq, scale, unsqueeze)

@@ -87,12 +87,12 @@ KERNELS = {k.name: k for k in (
     # k, m, b, A, C, B, out, n_total, n_cols, stream
     Kernel("eval_cdf", "eval_cdf.cu", "eval_cdf_launch",
            [_P] * 7 + [_LL, _LL, _P]),
-    # y_sym, y_idx, z_sym, row_params, n_rows, cdf_rows, width, max_value,
-    # offsets, z_rows_base, n_z_rows, n_images, n_y, n_z, z_start,
-    # z_freqm1, z_esc, y_start, y_freqm1, y_esc, stream
+    # y_sym, y_idx, z_sym, row_params, n_rows, y_gather, cdf_rows, width,
+    # n_cdf_rows, max_value, offsets, z_rows_base, n_z_rows, n_images, n_y,
+    # n_z, z_start, z_freqm1, z_esc, y_start, y_freqm1, y_esc, stream
     Kernel("rans_encode_prep", "rans_encode_prep.cu",
            "rans_encode_prep_launch",
-           [_P] * 4 + [_I, _P, _I, _P, _P] + [_I] * 5 + [_P] * 7),
+           [_P] * 4 + [_I, _I, _P, _I, _I, _P, _P] + [_I] * 5 + [_P] * 7),
     # z_start, z_freqm1, y_start, y_freqm1, x_out, words, masks, n_images,
     # n_lanes, n_z, n_per, n_phases, stream
     Kernel("rans_encode_scan", "rans_encode.cu", "rans_encode_launch",

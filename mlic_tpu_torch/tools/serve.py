@@ -12,8 +12,10 @@ with ``--verify``, else ``compress_begin`` of batch i+1 queued before
 ``--size`` or a synthetic dead-leaves stream, writes one container an
 image in the eval format (header (H, W), then the body: what
 ``eval.decompress_one_image`` and ``tools/decode.py`` read), and prints
-one JSON line: images, img/s, bpp, and the device with, on the card, its
-name and power limit (``nvidia-smi``).  The first batch warms up both
+one JSON line: images, img/s, bpp, the tables the codec codes with
+(``parametric``, ``analytic_enc_rows``: a fallback of ``update`` shows
+there), and the device with, on the card, its name and power limit
+(``nvidia-smi``).  The first batch warms up both
 directions and is not timed.  Runs on the CUDA card unless ``--cpu`` is
 given.  ``--checkpoint`` is an orbax directory of the JAX package or a
 torch file, taken by ``load_matching``; without it the weights are
@@ -145,6 +147,8 @@ def main(argv=None) -> dict:
     elapsed = time.perf_counter() - t0
     out = {"images": n, "img_s": n / elapsed,
            "bpp": total_bits / (n * h * w), "verify": args.verify,
+           "parametric": codec.parametric,
+           "analytic_enc_rows": codec.analytic_enc_rows,
            "device": str(codec.device)}
     if codec.device.type == "cuda":
         out.update(card())

@@ -14,8 +14,9 @@ but compress nothing.  ``--level`` codes a VBR model (e.g. MLICPP_S_VBR)
 at that gain level and writes the VBR header; without it a VBR model codes
 at level 0, as the reference CLI does.
 ``--backend`` picks the codec's backend: ``device`` (format v4, both rANS
-directions on the card; the port's default) or the reference's host-coded
-``steps`` / ``fused`` streams (the JAX CLI's default is ``steps``).
+directions on the card; the port's default; format v3 under
+``MLIC_UNIFIED_Z=0``) or the reference's host-coded ``steps`` / ``fused``
+streams (the JAX CLI's default is ``steps``).
 ``MLIC_FUSED_BLOCKS=1`` in the environment selects the fused block-tail
 kernel in g_a and g_s.  The codec picks its rANS lane count from the first
 image's size (``Codec(n_lanes="auto")``), as the reference CLI does.

@@ -157,18 +157,25 @@ def test_steps_and_fused_write_the_same_bytes(coded):
         assert torch.equal(dec["y_hat"], other["y_hat"])
 
 
-def test_every_codec_decodes_every_stream(coded):
-    """``decompress`` tells the streams' kind from their z strings: a
-    device-backend codec reads the reference's streams, and a host-coded
-    codec format v4 (its device tables built on that first stream); a
-    stream of neither kind raises."""
+def test_every_codec_decodes_every_stream(jax_side, coded, monkeypatch):
+    """``decompress`` tells the streams' kind from their z strings and
+    headers: a device-backend codec of either format reads the reference's
+    streams and the other format's, and a host-coded codec formats v3 and
+    v4 (its device tables built on that first stream); a stream of no
+    kind raises."""
     steps, dev = coded["steps"], coded["device"]
     host = Codec(steps[0].model, n_lanes=N_LANES, device="cpu",
                  backend="steps")
     host.update()
     assert host._gauss is None and host.tables is None
-    for codec in (host, dev[0]):
-        for _, enc, _ in (steps, dev):
+    monkeypatch.setenv("MLIC_UNIFIED_Z", "0")
+    v3 = Codec(steps[0].model, n_lanes=N_LANES, device="cpu")
+    enc3 = v3.compress(jax_side["x"])
+    assert all(enc3["strings"][1]) and torch.equal(enc3["y_hat"],
+                                                   dev[1]["y_hat"])
+    v3_coded = (v3, enc3, None)
+    for codec in (host, dev[0], v3):
+        for _, enc, _ in (steps, dev, v3_coded):
             dec = codec.decompress(enc["strings"], enc["shape"])
             assert torch.equal(dec["y_hat"], enc["y_hat"])
             assert torch.equal(dec["x_hat"], enc["x_hat"])
