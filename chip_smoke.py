@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (``mlic_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cards 4    # path 11 across the 4 cards of a host
 
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the seven CUDA kernels from ``mlic_tpu_torch/csrc`` (one nvcc per
@@ -172,8 +173,37 @@
    chain bound); ``tools.test`` and ``tools.decode`` under
    ``MLIC_UNIFIED_Z=0`` (subprocesses, PNG exact) and
    ``tools.ab_stream_format`` at batch 8, 2 segments a regime;
-19. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+19. path 11, scale-out (the ``train_recipe``, ``data_parallel_world_1``,
+   ``sharded``, ``poelic``, ``statistics`` and ``scale_out`` lines):
+   ``tools.train`` in a subprocess on a folder of dead-leaves PNGs from the
+   trained MLICPP_S with the reference's recipe -- ``--augment
+   autoaugment``, ``--patch-milestones 2:128``, validation every 2 steps on
+   a ``--test-dataset`` of two 768x512 frames with ``--save-recon`` -- for 4
+   steps of 8 x 256^2 (the patch size must switch at step 2, the losses and
+   validation be finite, the reconstructions written at the frames' size),
+   and again without AutoAugment (ms a step of both); ``tools.train``
+   plainly and under RANK=0 WORLD_SIZE=1 over NCCL, 3 steps, every step's
+   metrics and the final weights bit-equal; ``parallel.serving.
+   ShardedCodec`` of path 1's model on ["cuda:0"] and ["cuda:0",
+   "cuda:0"], path 1's 3 batches of 8 at 512 lanes, each bit-exact, each
+   shard's streams and y_hat path 1's codec's for the shard's images, the
+   launches of a batch the configuration's times the shards, K1 and K2 in
+   each replica's ``update``, the streams that differ from the batch-8
+   bytes counted, ms a direction; ``tools.serve --sharded --verify``;
+   3 POELIC steps (``poelic_train_step``, a seeded VGG16) of MLICPP_S at 8
+   x 256^2 (ms, peak memory, finite losses) and an f32 step against the
+   CPU at path 3's tolerances; ``tools.statistics`` on 4 frames, its bpp
+   within 1e-6 of ``Trainer.evaluate``'s;
+20. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
+
+With ``--cards N`` on a host of N cards it runs path 11's scale-out
+across them instead (``multi_card``): ``tools.train`` over N processes and
+NCCL against one process on the global batch (f32, SGD, 2 steps: losses
+within rtol 1e-4, weights within rtol 2e-4, atol 2e-6), ``ShardedCodec``
+with a replica on each card over path 1's batches (each shard's streams
+the single codec's) and ``tools.serve --sharded``, ``tools.statistics``
+over N processes against one; then the ``{"ok": true, ...}`` line.
 
 Exits non-zero, before printing any result, without CUDA or without the
 repository beside it; any failed phase raises, and no kernel failure is
@@ -292,6 +322,17 @@ RD_VBR_FRAMES, RD_VBR_SIZE = 2, 320
 L_TRAIN_WARMUP, L_TRAIN_STEPS = 3, 5
 SD_FREEZE = r"^\['(g_a|h_a)'\]"
 SD_TRAIN_STEPS = 3
+# Path 11, scale-out: the training CLI with the reference's recipe
+# (AutoAugment, a patch milestone, validation with reconstructions) and
+# under a process group of one over NCCL; the sharded codec at one and two
+# shards of the card; POELIC steps; tools.statistics.
+SCALE_TRAIN_STEPS, SCALE_PATCH_SWITCH = 4, (2, 128)
+SCALE_DP_STEPS = 3
+SHARD_DEVICES = (("cuda:0",), ("cuda:0", "cuda:0"))
+POELIC_STEPS = 3
+STATS_FRAMES = 4
+# ``--cards N``: the data-parallel steps against one process
+MULTI_TRAIN_STEPS = 2
 # the kernels a coded request launches (K1 and K2 run in update only)
 # the keys of a kernel's row at L's shapes that the kernels line carries
 AT_L_KEYS = ("launches", "status", "max_abs_err", "ms", "plain_ms",
@@ -3325,11 +3366,743 @@ def sd_freeze_path() -> dict:
     return counts
 
 
-def main() -> int:
+def _run_tool(module: str, args: list, env: dict | None = None) -> str:
+    """``python -m mlic_tpu_torch.tools.<module> args`` from the repository
+    root on the card; returns its standard output, raises on failure."""
+    proc = subprocess.run(
+        [sys.executable, "-m", f"mlic_tpu_torch.tools.{module}", *args],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+        env=None if env is None else {**os.environ, **env})
+    if proc.returncode:
+        raise AssertionError(f"tools.{module} failed ({proc.returncode}): "
+                             f"{proc.stdout[-1500:]}{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def _train_run(stdout: str, work: str) -> dict:
+    """What a ``tools.train`` run shows: its segments (first step, patch
+    size) and each logged step's host ms from the log, and every step's
+    metrics and validation at full precision from ``metrics.jsonl``."""
+    import re
+    with open(os.path.join(work, "logs", "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    return {
+        "segments": [[int(s), int(p)] for p, s in re.findall(
+            r"^patch (\d+) from step (\d+)$", stdout, re.M)],
+        "step_ms": [float(v) for v in re.findall(
+            r"^step \d+ \| (\d+) ms/it", stdout, re.M)],
+        "train": [{k: v for k, v in r.items() if k.startswith("train/")}
+                  for r in records if "train/loss" in r],
+        "val": [{k: v for k, v in r.items() if k != "time"}
+                for r in records if "val/psnr" in r]}
+
+
+def train_recipe_cli() -> dict:
+    """``tools.train`` in a subprocess on a folder of dead-leaves PNGs
+    (TRAIN_POOL images of 320^2; two 768x512 frames to validate on), from
+    the trained MLICPP_S: SCALE_TRAIN_STEPS steps of 8 x 256^2 crops with
+    the reference's AutoAugment, the patch size switching to 128 at step 2,
+    validation every 2 steps with its reconstructions written; then the
+    same run without AutoAugment and validation.  The patch size must
+    switch where the schedule says, every loss and validation metric be
+    finite, the reconstructions be written at the test frames' size, and
+    AutoAugment change the losses.  Reports the host ms of each step."""
+    from PIL import Image
+
+    from mlic_tpu_torch.data.folder import dead_leaves_pool
+    t_path = time.perf_counter()
+    switch, small = SCALE_PATCH_SWITCH
+    train_pool = dead_leaves_pool(TRAIN_POOL, TRAIN_POOL_SIZE, SEED + 11,
+                                  cache_dir="")
+    test_pool = dead_leaves_pool(2, HEIGHT, SEED + 12, width=WIDTH,
+                                 cache_dir="")
+    runs = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, imgs in (("train", train_pool), ("test", test_pool)):
+            os.makedirs(os.path.join(d, name))
+            for i, img in enumerate(imgs):
+                Image.fromarray(img).save(os.path.join(d, name,
+                                                       f"{name}{i:02d}.png"))
+        common = ["--model", MODEL, "--pretrained", CHECKPOINT, "--dataset",
+                  os.path.join(d, "train"), "--steps", str(SCALE_TRAIN_STEPS),
+                  "--batch-size", str(TRAIN_BATCH), "--patch-size",
+                  str(TRAIN_PATCH), "--patch-milestones", f"{switch}:{small}",
+                  "--log-freq", "1", "--seed", str(SEED)]
+        recipe = ["--augment", "autoaugment", "--test-dataset",
+                  os.path.join(d, "test"), "--val-every", "2",
+                  "--val-images", "2", "--save-recon"]
+        for label, extra in (("autoaugment", recipe), ("plain", [])):
+            ckpt = os.path.join(d, label)
+            t0 = time.perf_counter()
+            out = _run_tool("train", common + extra + ["--ckpt-dir", ckpt])
+            runs[label] = {**_train_run(out, os.path.join(
+                ckpt, "mlic_tpu_torch")), "cli_s": time.perf_counter() - t0}
+        val_dir = os.path.join(d, "autoaugment", "mlic_tpu_torch", "val")
+        recons = {}
+        for f in sorted(os.listdir(val_dir)):
+            a = np.asarray(Image.open(os.path.join(val_dir, f)))
+            recons[f] = {"shape": list(a.shape), "std": float(a.std())}
+    want_segments = [[0, TRAIN_PATCH], [switch, small]]
+    want_recons = [f"step{s}_img{i}.png" for s in (2, 4) for i in (0, 1)]
+    aug, plain = runs["autoaugment"], runs["plain"]
+    finite = all(np.isfinite(v) for r in (aug, plain)
+                 for rec in r["train"] + r["val"] for v in rec.values())
+    row = {"model": MODEL, "weights": "trained (ckpts/bench_default)",
+           "batch": [TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH, 3],
+           "patch_milestones": f"{switch}:{small}",
+           "step_ms_autoaugment": aug["step_ms"],
+           "step_ms_plain": plain["step_ms"],
+           "segments": aug["segments"], "val": aug["val"],
+           "losses_autoaugment": [r["train/loss"] for r in aug["train"]],
+           "losses_plain": [r["train/loss"] for r in plain["train"]],
+           "recons": recons,
+           "cli_s": {k: r["cli_s"] for k, r in runs.items()},
+           "path_s": time.perf_counter() - t_path}
+    print(json.dumps({"train_recipe": row}), flush=True)
+    bad_recons = [f for f in want_recons if f not in recons
+                  or recons[f]["shape"] != [HEIGHT, WIDTH, 3]
+                  or not recons[f]["std"]]
+    if aug["segments"] != want_segments or plain["segments"] != want_segments \
+            or len(aug["train"]) != SCALE_TRAIN_STEPS \
+            or len(plain["train"]) != SCALE_TRAIN_STEPS \
+            or [r["step"] for r in aug["val"]] != [2, 4] or bad_recons \
+            or not finite or row["losses_autoaugment"] == row["losses_plain"]:
+        raise AssertionError(f"training recipe: bad reconstructions "
+                             f"{bad_recons}, {row}")
+    return row
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def data_parallel_world1() -> dict:
+    """``tools.train`` (the trained MLICPP_S, SCALE_DP_STEPS steps of 8 x
+    256^2 dead-leaves crops) plainly and under RANK=0, WORLD_SIZE=1 over
+    NCCL: the process group's backend must be nccl, and every step's
+    metrics and the final weights bit-equal to the plain run's (the mean
+    over one process divides by 1; the noise is the global batch's
+    slice, all of it)."""
     import torch
+    t_path = time.perf_counter()
+    common = ["--model", MODEL, "--pretrained", CHECKPOINT, "--synthetic",
+              "--synthetic-kind", "dead_leaves", "--pool-size",
+              str(TRAIN_POOL), "--pool-image-size", str(TRAIN_POOL_SIZE),
+              "--steps", str(SCALE_DP_STEPS), "--batch-size",
+              str(TRAIN_BATCH), "--patch-size", str(TRAIN_PATCH),
+              "--log-freq", "1", "--seed", str(SEED)]
+    dist_env = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1",
+                "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
+    runs, weights, backend = {}, {}, None
+    with tempfile.TemporaryDirectory() as d:
+        for label, env in (("plain", None), ("nccl_world_1", dist_env)):
+            ckpt = os.path.join(d, label)
+            t0 = time.perf_counter()
+            out = _run_tool("train", common + ["--ckpt-dir", ckpt], env)
+            runs[label] = {**_train_run(out, os.path.join(
+                ckpt, "mlic_tpu_torch")), "cli_s": time.perf_counter() - t0}
+            if env is not None:
+                line = [s for s in out.splitlines()
+                        if s.startswith("process group:")]
+                backend = line[0].split("backend ")[1].split(",")[0] \
+                    if line else None
+            weights[label] = torch.load(os.path.join(
+                ckpt, "mlic_tpu_torch", f"checkpoint_{SCALE_DP_STEPS}.pt"),
+                map_location="cpu", weights_only=True)["model"]
+    plain, dp = runs["plain"], runs["nccl_world_1"]
+    differ = [k for k in weights["plain"]
+              if not torch.equal(weights["plain"][k],
+                                 weights["nccl_world_1"][k])]
+    row = {"backend": backend, "steps": SCALE_DP_STEPS,
+           "losses_plain": [r["train/loss"] for r in plain["train"]],
+           "losses_nccl_world_1": [r["train/loss"] for r in dp["train"]],
+           "metrics_bit_equal": plain["train"] == dp["train"],
+           "weights_differing": differ, "tensors": len(weights["plain"]),
+           "step_ms_plain": plain["step_ms"],
+           "step_ms_nccl_world_1": dp["step_ms"],
+           "cli_s": {k: r["cli_s"] for k, r in runs.items()},
+           "path_s": time.perf_counter() - t_path}
+    print(json.dumps({"data_parallel_world_1": row}), flush=True)
+    if backend != "nccl" or not row["metrics_bit_equal"] or differ \
+            or len(plain["train"]) != SCALE_DP_STEPS:
+        raise AssertionError(f"data parallelism at world size 1: {row}")
+    return row
+
+
+def _diff(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def sharded_path(model, codec, frames, device_lists=SHARD_DEVICES) -> dict:
+    """``ShardedCodec`` of path 1's model (512 lanes, format v4) on each
+    of ``device_lists``, over path 1's 3 batches of 8 after a
+    warm-up batch: each batch bit-exact (x_hat), each shard's streams
+    ``Codec.compress``'s of the shard's images on path 1's codec and its
+    decoded y_hat that codec's, the launches of a batch the configuration's
+    times the shards; the count of streams that differ from the
+    single-device batch-8 bytes (bf16 g_a may round by batch), ms a
+    direction, and the launches of each replica's ``update``.  Then
+    ``tools.serve --sharded --verify``.  Returns the launch counts of the
+    path's sharded work (the single codec's reference requests excluded)."""
+    import copy
+
+    import torch
+
+    from mlic_tpu_torch.ops import _build
+    from mlic_tpu_torch.parallel.serving import ShardedCodec
+    from mlic_tpu_torch.tools import serve as serve_cli
+    t_path = time.perf_counter()
+    cfg = model.cfg
+    single = [codec.compress(x)["strings"][0] for x in frames]
+    total = dict.fromkeys(_build.launch_counts(), 0)
+
+    def counted(fn, *args):
+        before = _build.launch_counts()
+        out = fn(*args)
+        got = _diff(_build.launch_counts(), before)
+        for k, v in got.items():
+            total[k] += v
+        return out, got
+
+    rows = []
+    for devices in device_lists:
+        n = len(devices)
+        per = BATCH // n
+        sc = ShardedCodec(copy.deepcopy(model), list(devices),
+                          n_lanes=N_LANES, encode_recon=True)
+        _, in_update = counted(sc.update)
+        if not sc.parametric or not sc.analytic_enc_rows:
+            raise AssertionError(f"sharded update took a fallback: {devices}")
+        warm, _ = counted(sc.compress, frames[0])
+        counted(sc.decompress, warm["strings"], warm["shape"])
+        want = {k: v * n for k, v in request_launches(cfg).items()}
+        enc_ms, dec_ms, differ, shard_mismatch = [], [], 0, []
+        for r, x in enumerate(frames):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enc, l_enc = counted(sc.compress, x)
+            t1 = time.perf_counter()
+            dec, l_dec = counted(sc.decompress, enc["strings"], enc["shape"])
+            t2 = time.perf_counter()
+            enc_ms.append((t1 - t0) * 1e3)
+            dec_ms.append((t2 - t1) * 1e3)
+            launches = {k: l_enc[k] + l_dec[k] for k in l_enc}
+            if launches != want:
+                raise AssertionError(f"sharded {devices} batch {r}: launches "
+                                     f"{launches}, want {want}")
+            if not torch.equal(dec["x_hat"], enc["x_hat"]) \
+                    or tuple(dec["x_hat"].shape) != tuple(x.shape) \
+                    or not bool(torch.isfinite(dec["x_hat"]).all()):
+                raise AssertionError(f"sharded {devices} batch {r}: x_hat")
+            for i in range(n):
+                sl = slice(i * per, (i + 1) * per)
+                part = codec.compress(x[sl])
+                if enc["strings"][0][sl] != part["strings"][0] \
+                        or not torch.equal(dec["y_hat"][sl], part["y_hat"]):
+                    shard_mismatch.append([r, i])
+            differ += sum(a != b for a, b in zip(enc["strings"][0],
+                                                 single[r]))
+        row = {"devices": list(devices), "shards": n, "batch": BATCH,
+               "lanes": N_LANES, "batches": len(frames),
+               "encode_ms": enc_ms, "decode_ms": dec_ms,
+               "encode_ms_median": float(np.median(enc_ms)),
+               "decode_ms_median": float(np.median(dec_ms)),
+               "launches_per_shard_a_batch": {k: v // n
+                                              for k, v in want.items()},
+               "launches_per_replica_update": {k: v / n for k, v in
+                                               in_update.items()},
+               "shards_differing_from_codec": shard_mismatch,
+               "streams_differing_from_batch_8": differ,
+               "streams": BATCH * len(frames)}
+        rows.append(row)
+        print(json.dumps({"sharded": row}), flush=True)
+        if shard_mismatch or not in_update["select_rows"] \
+                or not in_update["eval_cdf"]:
+            raise AssertionError(f"sharded codec {devices}: {row}")
+        del sc
+    cli, _ = counted(serve_cli.main, [
+        "--checkpoint", CHECKPOINT, "--transform-dtype", "bfloat16",
+        "--synthetic", "--n", str(2 * BATCH), "--batch", str(BATCH),
+        "--lanes", str(N_LANES), "--sharded", "--verify"])
+    if not (cli["sharded"] and cli["shards"] == torch.cuda.device_count()
+            and cli["parametric"] and cli["analytic_enc_rows"]):
+        raise AssertionError(f"tools.serve --sharded: {cli}")
+    print(json.dumps({"sharded_serve_cli": cli,
+                      "sharded_path_s": time.perf_counter() - t_path}),
+          flush=True)
+    return total
+
+
+def seeded_vgg():
+    """A VGG16 feature extractor with PyTorch's default initialization
+    from seed SEED (no pretrained weights are in the repository)."""
+    import torch
+
+    from mlic_tpu_torch.perceptual import Vgg16Features
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        return Vgg16Features()
+
+
+def poelic_path(state) -> dict:
+    """POELIC_STEPS perceptual steps (``poelic_train_step``) of MLICPP_S
+    from the trained weights under ``bfloat16_mixed``, batches of 8 x
+    256^2 dead-leaves crops, a seeded VGG16: ms a step, peak memory, every
+    loss term finite, the VGG untouched, no kernel launched; one f32 step
+    at 1 x 128^2 on the card against the CPU at path 3's tolerances."""
+    import torch
+
+    from mlic_tpu_torch.data.folder import dead_leaves_pool, pool_batches
+    from mlic_tpu_torch.models.config import model_config
+    from mlic_tpu_torch.ops import _build
+    from mlic_tpu_torch.train.trainer import poelic_train_step
+    t_path = time.perf_counter()
+    pool = dead_leaves_pool(TRAIN_POOL, TRAIN_POOL_SIZE, SEED + 9,
+                            cache_dir="")
+    batches = list(pool_batches(pool, TRAIN_BATCH, TRAIN_PATCH, POELIC_STEPS,
+                                seed=SEED + 1))
+    vgg = seeded_vgg()
+    vgg_start = {k: v.clone() for k, v in vgg.state_dict().items()}
+    before = _build.launch_counts()
+    with torch.enable_grad():
+        tr = _trainer(state)
+        vgg_card = seeded_vgg().cuda()
+        torch.cuda.reset_peak_memory_stats()
+        ms, metrics = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics.append(_floats(poelic_train_step(tr.state, b, tr.cfg,
+                                                     vgg_card)))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        vgg_moved = [k for k, v in vgg_card.state_dict().items()
+                     if not torch.equal(v.cpu(), vgg_start[k])]
+        del tr
+        counts = _diff(_build.launch_counts(), before)
+        b, h, w, _ = CPU_STEP_SHAPE
+        x = pool[:b, :h, :w]
+        noise = torch.from_numpy(np.random.default_rng(SEED + 10).uniform(
+            -0.5, 0.5, (model_config(MODEL).N, b * (h // 64) * (w // 64))
+        ).astype(np.float32))
+        cpu = {}
+        for dev in ("cpu", "cuda"):
+            t = _trainer(state, "float32", dev)
+            m = poelic_train_step(t.state, x, t.cfg, vgg.to(dev),
+                                  noise=noise.to(dev))
+            cpu[dev] = {"loss": float(m["loss"]),
+                        "grad_norm": float(m["grad_norm"])}
+    rel = {k: abs(cpu["cuda"][k] - cpu["cpu"][k]) / abs(cpu["cpu"][k])
+           for k in ("loss", "grad_norm")}
+    row = {"model": MODEL, "weights": "trained (ckpts/bench_default)",
+           "vgg": "seeded (torch default init, seed 0)",
+           "transform_dtype": "bfloat16_mixed",
+           "batch": [TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH, 3],
+           "step_ms": ms, "peak_mem_gib": peak, "first": metrics[0],
+           "last": metrics[-1], "vgg_changed": vgg_moved,
+           "launches": counts, "f32_step_vs_cpu": {
+               "shape": list(CPU_STEP_SHAPE), **cpu,
+               "loss_rel_diff": rel["loss"],
+               "grad_norm_rel_diff": rel["grad_norm"],
+               "tolerances": [CPU_LOSS_RTOL, CPU_GRAD_NORM_RTOL]},
+           "path_s": time.perf_counter() - t_path}
+    print(json.dumps({"poelic": row}), flush=True)
+    finite = all(np.isfinite(v) for m in metrics for v in m.values())
+    if not finite or vgg_moved or any(counts.values()) \
+            or not rel["loss"] <= CPU_LOSS_RTOL \
+            or not rel["grad_norm"] <= CPU_GRAD_NORM_RTOL:
+        raise AssertionError(f"POELIC: {row}")
+    return row
+
+
+def statistics_path(state, frames) -> dict:
+    """``tools.statistics`` on STATS_FRAMES 768x512 dead-leaves frames (the
+    trained MLICPP_S, ``bfloat16_mixed``): a row for every file, bpp within
+    1e-6 of ``Trainer.evaluate``'s on the same frames, PSNR and MS-SSIM
+    finite.  Returns the launch counts (none expected)."""
+    import csv
+
+    from PIL import Image
+
+    from mlic_tpu_torch.ops import _build
+    from mlic_tpu_torch.tools import statistics as stats_cli
+    t_path = time.perf_counter()
+    x = frames[0][:STATS_FRAMES]
+    before = _build.launch_counts()
+    with tempfile.TemporaryDirectory() as d:
+        images = os.path.join(d, "images")
+        os.makedirs(images)
+        for i, f in enumerate(x):
+            Image.fromarray(f).save(os.path.join(images, f"frame{i}.png"))
+        out = os.path.join(d, "stats.csv")
+        t0 = time.perf_counter()
+        stats_cli.main(["--model", MODEL, "--checkpoint", CHECKPOINT,
+                        "--dataset", images, "--out", out,
+                        "--transform-dtype", "bfloat16_mixed"])
+        cli_s = time.perf_counter() - t0
+        with open(out) as fh:
+            rows = list(csv.DictReader(fh))
+    counts = _diff(_build.launch_counts(), before)
+    ev = _trainer(state).evaluate([f.astype(np.float32) / 255.0 for f in x])
+    diffs = [abs(float(r["bpp"]) - e["bpp"])
+             for r, e in zip(rows, ev["per_image"])]
+    row = {"frames": STATS_FRAMES, "names": [r["name"] for r in rows],
+           "bpp": [float(r["bpp"]) for r in rows],
+           "psnr": [float(r["psnr"]) for r in rows],
+           "ms_ssim": [float(r["ms_ssim"]) for r in rows],
+           "evaluate_bpp": [e["bpp"] for e in ev["per_image"]],
+           "max_bpp_diff": max(diffs) if diffs else None, "cli_s": cli_s,
+           "launches": counts, "path_s": time.perf_counter() - t_path}
+    print(json.dumps({"statistics": row}), flush=True)
+    names = [f"frame{i}.png" for i in range(STATS_FRAMES)]
+    finite = all(np.isfinite(row[k]).all() for k in ("bpp", "psnr",
+                                                     "ms_ssim"))
+    if row["names"] != names or not finite or row["max_bpp_diff"] > 1e-6:
+        raise AssertionError(f"tools.statistics: {row}")
+    return counts
+
+
+def scale_out_path(state, model, codec, frames) -> dict:
+    """Path 11: the reference's training recipe through ``tools.train``,
+    a world-size-1 NCCL run, the sharded codec, POELIC and
+    ``tools.statistics``.  Returns the launch counts of the path run in
+    this process (training runs no kernel; its CLIs run in subprocesses)."""
+    t_path = time.perf_counter()
+    recipe = train_recipe_cli()
+    dp = data_parallel_world1()
+    counts = sharded_path(model, codec, frames)
+    poelic = poelic_path(state)
+    stats = statistics_path(state, frames)
+    for k, v in stats.items():
+        counts[k] += v
+    missing = [k for k in ("select_rows", "eval_cdf") + REQUEST_KERNELS
+               if not counts[k]]
+    print(json.dumps({"scale_out": {
+        "launches": counts, "train_recipe_s": recipe["path_s"],
+        "data_parallel_s": dp["path_s"], "poelic_s": poelic["path_s"],
+        "path_s": time.perf_counter() - t_path}}), flush=True)
+    if missing:
+        raise AssertionError(f"path 11 launched no {missing}")
+    return counts
+
+
+def _launch_ranks(n: int, module: str, args: list) -> list:
+    """``tools.<module> args`` in ``n`` processes of one process group
+    (RANK, LOCAL_RANK = 0..n-1, a free localhost port); returns their
+    outputs.  A rank that fails, or a run past its time limit, ends every
+    rank at once (the others would wait in a collective) and raises."""
+    port = str(_free_port())
+    with tempfile.TemporaryDirectory() as d:
+        logs = [open(os.path.join(d, f"rank{r}.log"), "w+")
+                for r in range(n)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", f"mlic_tpu_torch.tools.{module}", *args],
+            cwd=REPO, stdout=log, stderr=subprocess.STDOUT, text=True,
+            env={**os.environ, "RANK": str(r), "LOCAL_RANK": str(r),
+                 "WORLD_SIZE": str(n), "MASTER_ADDR": "127.0.0.1",
+                 "MASTER_PORT": port}) for r, log in enumerate(logs)]
+        deadline = time.monotonic() + 600
+        try:
+            while any(p.poll() is None for p in procs) \
+                    and not any(p.returncode for p in procs) \
+                    and time.monotonic() < deadline:
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        outs = []
+        for log in logs:
+            log.seek(0)
+            outs.append(log.read())
+            log.close()
+    bad = [(r, p.returncode, o[-2000:]) for r, (p, o)
+           in enumerate(zip(procs, outs)) if p.returncode]
+    if bad:
+        raise AssertionError(f"tools.{module} over {n} processes: {bad}")
+    return outs
+
+
+def _multi_train_flags() -> list:
+    """``tools.train``'s flags in ``multi_card_train``, but --ckpt-dir."""
+    return ["--model", MODEL, "--pretrained", CHECKPOINT, "--synthetic",
+            "--synthetic-kind", "dead_leaves", "--pool-size",
+            str(TRAIN_POOL), "--pool-image-size", str(TRAIN_POOL_SIZE),
+            "--steps", str(MULTI_TRAIN_STEPS), "--batch-size",
+            str(TRAIN_BATCH), "--patch-size", str(TRAIN_PATCH),
+            "--transform-dtype", "float32", "--optimizer", "sgd",
+            "--log-freq", "1", "--seed", str(SEED)]
+
+
+def batch_split_first_step(n: int) -> dict:
+    """The first step's RD loss of ``multi_card_train``'s run, computed in
+    this process on one card from the same weights, batch and noise as
+    ``tools.train`` takes them: in one training forward of the global
+    batch (what one process computes) and in ``n`` forwards of a slice
+    each, with the slice's columns of the same z noise, their losses
+    averaged (what ``n`` ranks compute and all-reduce).  Reports both
+    losses, their relative difference, how far g_a's output y and h_s's
+    output differ between the two, and the entries of y_hat and z_hat (the
+    quantized latents g_s and h_s take) that differ by at least 1/2, i.e.
+    round to another integer.  Then the global batch's loss once more with
+    the context models' batch-spanning products (``models/context.
+    per_image``, one call a batch in training) run an image at a time: if
+    those products are where the batch size changes the floats, this loss
+    sits by the slices' mean and not by the whole batch's."""
+    import torch
+
+    from mlic_tpu_torch.data.folder import dead_leaves_pool, pool_batches
+    from mlic_tpu_torch.loss import rate_distortion_loss
+    from mlic_tpu_torch.models import context
+    from mlic_tpu_torch.models.registry import get_model
+    from mlic_tpu_torch.tools.train import parse_args
+    from mlic_tpu_torch.train.trainer import (
+        TrainConfig,
+        _to_batch,
+        create_train_state,
+        z_noise,
+    )
+    from mlic_tpu_torch.utils.checkpoint import load_matching
+    from mlic_tpu_torch.weights import init_params, load_checkpoint
+    args = parse_args(_multi_train_flags())
+    model = get_model(args.model, args.transform_dtype)
+    model.load_state_dict(init_params(
+        model, torch.Generator().manual_seed(args.seed)))
+    weights, _ = load_matching(model.state_dict(),
+                               load_checkpoint(args.pretrained))
+    model.load_state_dict(weights)
+    state = create_train_state(model, TrainConfig(seed=args.seed), "cuda")
+    pool = dead_leaves_pool(args.pool_size, args.pool_image_size,
+                            seed=args.seed)
+    x = _to_batch(next(pool_batches(pool, args.batch_size, args.patch_size,
+                                    args.steps, seed=args.seed + 1)),
+                  "cuda")
+    noise = z_noise(model, x, state.generator)
+    seen = {"y": [], "y_hat": [], "z_hat": [], "hyper": []}
+    hooks = [model.g_a.register_forward_hook(
+                 lambda m, i, o: seen["y"].append(o.detach())),
+             model.h_s.register_forward_hook(
+                 lambda m, i, o: seen["hyper"].append(o.detach())),
+             model.g_s.register_forward_pre_hook(
+                 lambda m, i: seen["y_hat"].append(i[0].detach())),
+             model.h_s.register_forward_pre_hook(
+                 lambda m, i: seen["z_hat"].append(i[0].detach()))]
+    k, cols = len(x) // n, noise.shape[1] // n
+
+    def loss(sl, cl):
+        out = model(x[sl], True, noise[:, cl], state.generator)
+        return float(rate_distortion_loss(out, x[sl], args.lmbda,
+                                          args.metrics)["loss"].detach())
+    with torch.enable_grad():       # training's path: one call a batch
+        whole = loss(slice(None), slice(None))
+        split = float(np.mean([loss(slice(i * k, (i + 1) * k),
+                                    slice(i * cols, (i + 1) * cols))
+                               for i in range(n)]))
+        for h in hooks:
+            h.remove()
+        batched = context.per_image     # the products an image at a time
+        context.per_image = lambda fn, *xs: torch.cat(
+            [fn(*(v[i:i + 1] for v in xs)) for i in range(len(xs[0]))])
+        try:
+            alone = loss(slice(None), slice(None))
+        finally:
+            context.per_image = batched
+    y_whole, y_split = seen["y"][0], torch.cat(seen["y"][1:])
+    hyper = int((seen["hyper"][0] != torch.cat(seen["hyper"][1:])).sum())
+    jump = {k: int(((seen[k][0] - torch.cat(seen[k][1:])).abs() >= 0.5)
+                   .sum()) for k in ("y_hat", "z_hat")}
+    row = {"ranks": n, "batch": len(x), "loss_whole": whole,
+           "loss_split": split,
+           "loss_rel_diff": abs(whole - split) / abs(whole),
+           "loss_whole_products_per_image": alone,
+           "per_image_rel_diff_to_split": abs(alone - split) / abs(split),
+           "y_entries": y_whole.numel(),
+           "y_entries_differing": int((y_whole != y_split).sum()),
+           "y_max_abs_diff": float((y_whole - y_split).abs().max()),
+           "h_s_entries_differing": hyper,
+           "y_hat_entries_rounding_otherwise": jump["y_hat"],
+           "z_hat_entries_rounding_otherwise": jump["z_hat"]}
+    print(json.dumps({"batch_split_first_step": row}), flush=True)
+    return row
+
+
+def multi_card_train(n: int) -> dict:
+    """``tools.train`` over ``n`` cards (one process a card, NCCL) against
+    one process on the global batch: MLICPP_S from the trained weights in
+    f32 (TF32 off), SGD, 2 steps of 8 x 256^2 dead-leaves crops (8 / n
+    images a card).  The weights within rtol 2e-4, atol 2e-6 (the JAX
+    package's bounds for its sharded step, tests/test_parallel.py:44-47).
+    The first step's loss within rtol 1e-5 (the CPU test's bound) of
+    ``batch_split_first_step``'s mean over ``n`` slices, the computation
+    the ranks make, and the one process's within 1e-6 of that function's
+    whole-batch loss.  Every step's loss within CPU_LOSS_RTOL of the one
+    process's: the context models' products round otherwise at a batch of
+    8 / n than at 8, and y_hat entries then round to another integer;
+    ``batch_split_first_step`` measures both on the card."""
+    import torch
+    t_path = time.perf_counter()
+    common = _multi_train_flags()
+    with tempfile.TemporaryDirectory() as d:
+        runs, weights = {}, {}
+        for label in ("one_process", f"{n}_processes"):
+            ckpt = os.path.join(d, label)
+            t0 = time.perf_counter()
+            if label == "one_process":
+                out = _run_tool("train", common + ["--ckpt-dir", ckpt])
+            else:
+                out = _launch_ranks(n, "train",
+                                    common + ["--ckpt-dir", ckpt])[0]
+            work = os.path.join(ckpt, "mlic_tpu_torch")
+            runs[label] = {**_train_run(out, work), "out": out,
+                           "cli_s": time.perf_counter() - t0}
+            weights[label] = torch.load(os.path.join(
+                work, f"checkpoint_{MULTI_TRAIN_STEPS}.pt"),
+                map_location="cpu", weights_only=True)["model"]
+    split = batch_split_first_step(n)
+    one, dp = runs["one_process"], runs[f"{n}_processes"]
+    group = [s for s in dp["out"].splitlines()
+             if s.startswith("process group:")]
+    loss_rel = [abs(a["train/loss"] - b["train/loss"]) / abs(b["train/loss"])
+                for a, b in zip(dp["train"], one["train"])]
+    first_vs_split = abs(dp["train"][0]["train/loss"] - split["loss_split"]) \
+        / abs(split["loss_split"])
+    one_vs_whole = abs(one["train"][0]["train/loss"] - split["loss_whole"]) \
+        / abs(split["loss_whole"])
+    outside = [k for k, w in weights["one_process"].items()
+               if not torch.allclose(weights[f"{n}_processes"][k], w,
+                                     rtol=2e-4, atol=2e-6)]
+    row = {"cards": n, "process_group": group[0] if group else None,
+           "steps": MULTI_TRAIN_STEPS, "batch": TRAIN_BATCH,
+           "losses_one_process": [r["train/loss"] for r in one["train"]],
+           "losses_data_parallel": [r["train/loss"] for r in dp["train"]],
+           "loss_rel_diff": loss_rel,
+           "first_loss_rel_diff_to_split": first_vs_split,
+           "first_loss_rel_diff_one_process_to_whole": one_vs_whole,
+           "weights_outside_bounds": outside,
+           "tensors": len(weights["one_process"]),
+           "step_ms_one_process": one["step_ms"],
+           "step_ms_data_parallel": dp["step_ms"],
+           "cli_s": {k: r["cli_s"] for k, r in runs.items()},
+           "path_s": time.perf_counter() - t_path}
+    print(json.dumps({"multi_card_train": row}), flush=True)
+    if not group or "backend nccl" not in group[0] \
+            or len(loss_rel) != MULTI_TRAIN_STEPS \
+            or first_vs_split > 1e-5 or one_vs_whole > 1e-6 \
+            or max(loss_rel) > CPU_LOSS_RTOL or outside:
+        raise AssertionError(f"data parallelism over {n} cards: {row}")
+    return row
+
+
+def multi_card_statistics(n: int, frames) -> dict:
+    """``tools.statistics`` over ``n`` processes (a card each) on the 2 x 8
+    frames of path 1, against one process: the CSV has every file, in the
+    round-robin order of the shards, each row within 1e-6 (bpp) and rtol
+    1e-5 (PSNR, MS-SSIM) of the one-process row."""
+    import csv
+
+    from PIL import Image
+    t_path = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        images = os.path.join(d, "images")
+        os.makedirs(images)
+        for i, f in enumerate(np.concatenate(frames[:2])):
+            Image.fromarray(f).save(os.path.join(images, f"frame{i:02d}.png"))
+        common = ["--model", MODEL, "--checkpoint", CHECKPOINT, "--dataset",
+                  images, "--transform-dtype", "bfloat16_mixed"]
+        _run_tool("statistics", common + ["--out", os.path.join(d, "1.csv")])
+        _launch_ranks(n, "statistics",
+                      common + ["--out", os.path.join(d, "n.csv")])
+        with open(os.path.join(d, "1.csv")) as f1, \
+                open(os.path.join(d, "n.csv")) as fn:
+            one = {r["name"]: r for r in csv.DictReader(f1)}
+            many = list(csv.DictReader(fn))
+    names = sorted(one)
+    order = [x for r in range(n) for x in names[r::n]]
+    diffs = {k: max(abs(float(r[k]) - float(one[r["name"]][k]))
+                    / (1.0 if k == "bpp" else abs(float(one[r["name"]][k])))
+                    for r in many) for k in ("bpp", "psnr", "ms_ssim")}
+    row = {"cards": n, "files": len(one), "rows": len(many),
+           "order_ok": [r["name"] for r in many] == order,
+           "max_bpp_diff": diffs["bpp"], "max_psnr_rel_diff": diffs["psnr"],
+           "max_ms_ssim_rel_diff": diffs["ms_ssim"],
+           "path_s": time.perf_counter() - t_path}
+    print(json.dumps({"multi_card_statistics": row}), flush=True)
+    if not (row["order_ok"] and diffs["bpp"] <= 1e-6
+            and diffs["psnr"] <= 1e-5 and diffs["ms_ssim"] <= 1e-5):
+        raise AssertionError(f"tools.statistics over {n} cards: {row}")
+    return row
+
+
+def multi_card(n: int) -> int:
+    """``python3 chip_smoke.py --cards N``: path 11's scale-out across the
+    N cards of one host, where the no-argument run has one -- data-parallel
+    training over NCCL against one process, ``ShardedCodec`` with a replica
+    on each card (and ``tools.serve --sharded``), ``tools.statistics`` over
+    N processes -- then the ``{"ok": true, ...}`` line."""
+    import torch
+
+    from mlic_tpu_torch.codec import Codec
+    from mlic_tpu_torch.data.folder import dead_leaves_pool
+    from mlic_tpu_torch.models.registry import get_model
+    from mlic_tpu_torch.ops import _build
+    if torch.cuda.device_count() != n:
+        print(f"chip_smoke: --cards {n}, but {torch.cuda.device_count()} "
+              "cards are visible", file=sys.stderr)
+        return 2
+    if TRAIN_BATCH % n or BATCH % n:
+        print(f"chip_smoke: batches of {BATCH} do not divide over {n} "
+              "cards", file=sys.stderr)
+        return 2
+    torch.set_grad_enabled(False)
+    card = card_line()
+    print(card, flush=True)
+    os.environ.pop(FUSED_SWITCH, None)
+    os.environ.pop("MLIC_UNIFIED_Z", None)
+    with tempfile.TemporaryDirectory() as pool_cache:
+        os.environ["MLIC_POOL_CACHE"] = pool_cache
+        print(json.dumps({"build_s": _build.build()}), flush=True)
+        state = load_trained()
+        model = get_model(MODEL, transform_dtype="bfloat16")
+        model.load_state_dict(state)
+        pool = dead_leaves_pool(2 * BATCH, HEIGHT, SEED, width=WIDTH,
+                                cache_dir="")
+        frames = [pool[(r % 2) * BATCH:(r % 2 + 1) * BATCH]
+                  for r in range(N_REQUESTS)]
+        codec = Codec(model, n_lanes=N_LANES, device="cuda")
+        codec.update()
+        multi_card_train(n)
+        counts = sharded_path(model, codec, frames, (tuple(
+            f"cuda:{i}" for i in range(n)),))
+        multi_card_statistics(n, frames)
+        os.environ.pop("MLIC_POOL_CACHE")
+    print(json.dumps({"multi_card": {"cards": n, "launches": counts}}),
+          flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--cards", type=int, default=None,
+                   help="run only path 11's scale-out across this many "
+                        "cards of one host")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    if args.cards is not None:
+        return multi_card(args.cards)
     torch.set_grad_enabled(False)       # path 3 enables it for training
     from mlic_tpu_torch.codec import Codec
     from mlic_tpu_torch.data.folder import dead_leaves_pool
@@ -3406,6 +4179,7 @@ def main() -> int:
     l_train_counts = l_train_path(l_counts.pop("state"))
     sd_counts = sd_path(frames, l_counts["g_s_ms"])
     sd_train_counts = sd_freeze_path()
+    scale_counts = scale_out_path(state, model, codec, frames)
     for k in kernels:
         k["launches_by_path"] = {"serve": counts[k["name"]],
                                  "eval": eval_counts[k["name"]],
@@ -3422,7 +4196,8 @@ def main() -> int:
                                  "rd_vbr": rd_counts[k["name"]],
                                  "train_L": l_train_counts[k["name"]],
                                  "train_small_decoder_frozen":
-                                     sd_train_counts[k["name"]]}
+                                     sd_train_counts[k["name"]],
+                                 "scale_out": scale_counts[k["name"]]}
         at_l = [r for r in l_counts["kernels"] if r["name"] == k["name"]]
         if at_l:
             k["at_MLICPP_L"] = {key: at_l[0][key] for key in AT_L_KEYS

@@ -4,8 +4,8 @@ decode or resize): recursive image discovery, decoding to uint8, random
 resize and crop, a folder dataset with a threaded prefetch, the procedural
 dead-leaves pool used where no dataset is mounted, and the batch streams
 over a pool or of synthetic waves.  Every random draw is the JAX package's,
-from the same numpy streams, so the batches are byte-identical.  The
-``autoaugment`` option waits for the port of ``data/autoaugment.py``.
+from the same numpy streams, so the batches are byte-identical, with
+AutoAugment (``data/autoaugment.py``) too.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ import threading
 from typing import Iterator
 
 import numpy as np
+
+from mlic_tpu_torch.data.autoaugment import autoaugment
 
 _EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".webp"}
 
@@ -66,17 +68,22 @@ def random_resize_crop(img: np.ndarray, patch: int, rng: np.random.Generator,
 class ImageFolderDataset:
     """Random crops of the images under a folder (reference ``ImageFolder2``,
     dataset.py:42-117); process ``process_index`` of ``process_count``
-    reads its own share of the file list."""
+    reads its own share of the file list.  ``augment="autoaugment"`` runs
+    the reference's AutoAugment (``train.py:82``) on each image before the
+    crop, from the same generator."""
 
     def __init__(self, root: str, patch_size: int = 256,
                  resize_logrange: float = 0.0,
                  process_index: int = 0, process_count: int = 1,
-                 seed: int = 0):
+                 seed: int = 0, augment: str | None = None):
+        if augment not in (None, "autoaugment"):
+            raise ValueError(f"unknown augment {augment!r}")
         self.files = list_images(root)[process_index::process_count]
         if not self.files:
             raise FileNotFoundError(f"no images under {root}")
         self.patch = patch_size
         self.resize_logrange = resize_logrange
+        self.augment = augment
         self.rng = np.random.default_rng(seed + process_index)
 
     def __len__(self):
@@ -88,6 +95,8 @@ class ImageFolderDataset:
         out = np.empty((batch_size, self.patch, self.patch, 3), np.float32)
         for i, j in enumerate(idx):
             img = load_image(self.files[int(j)])
+            if self.augment == "autoaugment":
+                img = autoaugment(img, self.rng)
             out[i] = random_resize_crop(img, self.patch, self.rng,
                                         self.resize_logrange
                                         ).astype(np.float32) / 255.0
@@ -172,8 +181,11 @@ def dead_leaves_pool(n_images: int, size: int, seed: int = 0,
         noise = rng.normal(0.0, 0.01, img.shape).astype(np.float32)
         pool[i] = np.clip((img + noise) * 255.0, 0, 255).astype(np.uint8)
     if cache:
-        np.savez_compressed(cache + ".tmp.npz", pool=pool)
-        os.replace(cache + ".tmp.npz", cache)
+        # a temporary of this process's own: the processes of a data-parallel
+        # run render the same pool at once
+        tmp = f"{cache}.{os.getpid()}.tmp.npz"
+        np.savez_compressed(tmp, pool=pool)
+        os.replace(tmp, cache)
     return pool
 
 

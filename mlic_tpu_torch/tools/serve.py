@@ -5,6 +5,7 @@
         --out DIR [--checkpoint ckpts/bench_default] [--verify] \\
         [--transform-dtype bfloat16] [--cpu]
     python -m mlic_tpu_torch.tools.serve --images DIR --verify
+    python -m mlic_tpu_torch.tools.serve --synthetic --sharded --verify
 
 Drives the device backend's two-deep pipeline -- ``Codec.roundtrip_stream``
 with ``--verify``, else ``compress_begin`` of batch i+1 queued before
@@ -14,12 +15,17 @@ image in the eval format (header (H, W), then the body: what
 ``eval.decompress_one_image`` and ``tools/decode.py`` read), and prints
 one JSON line: images, img/s, bpp, the tables the codec codes with
 (``parametric``, ``analytic_enc_rows``: a fallback of ``update`` shows
-there), and the device with, on the card, its name and power limit
-(``nvidia-smi``).  The first batch warms up both
-directions and is not timed.  Runs on the CUDA card unless ``--cpu`` is
-given.  ``--checkpoint`` is an orbax directory of the JAX package or a
-torch file, taken by ``load_matching``; without it the weights are
-seeded random ones.
+there), the shards, and the device with, on the card, its name and power
+limit (``nvidia-smi``).  ``--sharded`` serves through
+``parallel.serving.ShardedCodec`` over every visible card (the CPU with
+``--cpu``), one replica a card, the batch split evenly over them.  It is
+the counterpart of the JAX package's mesh serving, not a way to scale
+out: one host thread issues every replica's launches and the path is
+bound by the host, so it serves slower than one card does (PERF.md).
+The first batch warms up both directions and is not timed.  Runs on the
+CUDA card unless ``--cpu`` is given.  ``--checkpoint`` is an orbax
+directory of the JAX package or a torch file, taken by
+``load_matching``; without it the weights are seeded random ones.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import torch
 from mlic_tpu_torch.codec import Codec
 from mlic_tpu_torch.data.folder import dead_leaves_pool, list_images, load_image
 from mlic_tpu_torch.models.registry import get_model
+from mlic_tpu_torch.parallel.serving import ShardedCodec
 from mlic_tpu_torch.utils import bitstream
 from mlic_tpu_torch.utils.checkpoint import load_matching
 from mlic_tpu_torch.weights import init_params, load_checkpoint
@@ -97,6 +104,10 @@ def main(argv=None) -> dict:
                    choices=["float32", "bfloat16", "bfloat16_mixed"])
     p.add_argument("--verify", action="store_true",
                    help="decode every batch and check the reconstruction")
+    p.add_argument("--sharded", action="store_true",
+                   help="one codec replica on each visible card, the batch "
+                        "split over them; slower than one card, as one "
+                        "host thread issues every replica's launches")
     p.add_argument("--cpu", action="store_true")
     args = p.parse_args(argv)
     if not args.images and not args.synthetic:
@@ -114,9 +125,16 @@ def main(argv=None) -> dict:
     if args.checkpoint:
         state, _ = load_matching(state, load_checkpoint(args.checkpoint))
     model.load_state_dict(state, strict=True)
-    codec = Codec(model, n_lanes=args.lanes,
-                  device="cpu" if args.cpu else None,
-                  encode_recon=args.verify)
+    if args.sharded:
+        devices = (["cpu"] if args.cpu else
+                   [f"cuda:{i}" for i in range(torch.cuda.device_count())])
+        codec = ShardedCodec(model, devices, n_lanes=args.lanes,
+                             encode_recon=args.verify)
+    else:
+        codec = Codec(model, n_lanes=args.lanes,
+                      device="cpu" if args.cpu else None,
+                      encode_recon=args.verify)
+        devices = [codec.device]
     codec.update()
     batches = [np.stack(frames[k:k + args.batch])
                for k in range(0, n, args.batch)]
@@ -142,11 +160,13 @@ def main(argv=None) -> dict:
             total_bits += 8 * sum(len(s) for g in enc["strings"] for s in g)
             _write(args.out, names, k, args.batch, enc, (h, w))
             hnd = nxt
-        if codec.device.type == "cuda":
-            torch.cuda.synchronize(codec.device)
+        for d in devices:
+            if torch.device(d).type == "cuda":
+                torch.cuda.synchronize(d)
     elapsed = time.perf_counter() - t0
     out = {"images": n, "img_s": n / elapsed,
            "bpp": total_bits / (n * h * w), "verify": args.verify,
+           "sharded": args.sharded, "shards": len(devices),
            "parametric": codec.parametric,
            "analytic_enc_rows": codec.analytic_enc_rows,
            "device": str(codec.device)}

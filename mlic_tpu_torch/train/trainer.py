@@ -7,13 +7,23 @@ updates both parameter groups (``train/optimizers.py``).  The transforms
 compute in the model's ``transform_dtype`` (bf16 under ``bfloat16_mixed``)
 with f32 master parameters; the entropy path stays f32.  The z noise comes
 from the state's ``torch.Generator`` on the training device, so a run and
-its resume from a checkpoint draw the same noise.  One device: data
-parallelism waits for the port of ``parallel/``.
+its resume from a checkpoint draw the same noise.  ``dual_train_step`` is
+the two-pass recompression step and ``poelic_train_step`` the perceptual
+one (a frozen VGG16, ``perceptual.py``).
+
+Data parallelism (``parallel/mesh.py``): in a process group each process
+steps on its slice of the global batch.  It draws the global batch's z
+noise from the shared seeded generator and keeps its slice, and
+``apply_gradients`` replaces the gradients and the step's metrics by their
+mean over the processes -- one all-reduce, before the clipping -- so every
+process clips the global batch's gradient and applies the same update, and
+a step equals one process's step on the global batch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Iterable
 
@@ -25,6 +35,12 @@ from mlic_tpu_torch.eval import pad_to_multiple
 from mlic_tpu_torch.loss import rate_distortion_loss
 from mlic_tpu_torch.metrics import ms_ssim
 from mlic_tpu_torch.models.mlicpp import MLICPlusPlus
+from mlic_tpu_torch.parallel.mesh import (
+    all_reduce_mean_,
+    process_count,
+    process_index,
+)
+from mlic_tpu_torch.perceptual import rate_distortion_poelic_loss
 from mlic_tpu_torch.train.optimizers import (
     clip_by_global_norm_,
     frozen_names,
@@ -82,21 +98,46 @@ def _to_batch(batch, device) -> torch.Tensor:
     return x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
 
 
-def _update(state: TrainState, cfg: TrainConfig, loss: torch.Tensor):
+def z_noise(model, x: torch.Tensor, generator) -> torch.Tensor:
+    """One draw of the bottleneck's uniform noise in [-1/2, 1/2) for the
+    images x [B,H,W,3] (H, W multiples of 64), laid out [N, B*H/64*W/64]
+    as the bottleneck draws it.  In a process group the draw covers the
+    global batch (every process's slice, in process order) and this
+    process keeps its own columns, so the noise is what one process on
+    the global batch would draw."""
+    b, h, w, _ = x.shape
+    n = b * (h // 64) * (w // 64)
+    count = process_count()
+    full = torch.rand((model.cfg.N, count * n), generator=generator,
+                      device=x.device) - 0.5
+    start = process_index() * n
+    return full[:, start:start + n]
+
+
+def _update(state: TrainState, cfg: TrainConfig, loss: torch.Tensor,
+            metrics=()):
     """One backward of ``loss`` and one update of both groups at the
     schedule's rate; returns the main gradients' global norm.  Every
     gradient is cleared first, a frozen parameter's too: it is in neither
     optimizer but counts in the clipping norm, which must see this step's
-    gradients only."""
+    gradients only.  ``metrics``: device scalars averaged over the
+    processes with the gradients."""
     state.model.zero_grad(set_to_none=True)
     loss.backward()
-    return apply_gradients(state, cfg)
+    return apply_gradients(state, cfg, metrics)
 
 
-def apply_gradients(state: TrainState, cfg: TrainConfig) -> torch.Tensor:
-    """Clip the main gradients the parameters hold by their global norm,
-    step both optimizers at the schedule's rate and count the update;
-    returns the norm before clipping."""
+def apply_gradients(state: TrainState, cfg: TrainConfig, metrics=(),
+                    reduce: bool = True) -> torch.Tensor:
+    """In a process group (``reduce``), replace the gradients the
+    parameters hold and the tensors of ``metrics`` by their mean over the
+    processes, in one all-reduce; then clip the main gradients by their
+    global norm, step both optimizers at the schedule's rate and count the
+    update.  Returns the norm before clipping.  ``reduce=False``: the
+    caller averaged already (``train/vbr.py``)."""
+    if reduce:
+        all_reduce_mean_([p.grad for p in state.model.parameters()
+                          if p.grad is not None] + list(metrics))
     main = main_parameters(state.model)
     if cfg.clip_max_norm:
         norm = clip_by_global_norm_(main, cfg.clip_max_norm)
@@ -114,15 +155,18 @@ def train_step(state: TrainState, batch, cfg: TrainConfig,
                noise: torch.Tensor | None = None) -> dict:
     """One update from the RD loss plus the aux loss (trainer.py:79-104).
     Returns the step's metrics as device scalars (no host
-    synchronization).  ``noise`` overrides the generator's draw (tests)."""
+    synchronization), in a process group the global batch's.  ``noise``
+    overrides the generator's draw (tests)."""
     model = state.model
     x = _to_batch(batch, next(model.parameters()).device)
+    if noise is None:
+        noise = z_noise(model, x, state.generator)
     out = model(x, True, noise, state.generator)
     rd = rate_distortion_loss(out, x, cfg.lmbda, cfg.metric)
     aux = model.aux_loss()
-    norm = _update(state, cfg, rd["loss"] + aux)
     metrics = {k: v.detach() for k, v in rd.items()}
     metrics["aux_loss"] = aux.detach()
+    norm = _update(state, cfg, rd["loss"] + aux, metrics.values())
     metrics["grad_norm"] = norm.detach()
     return metrics
 
@@ -133,17 +177,42 @@ def dual_train_step(state: TrainState, batch, cfg: TrainConfig) -> dict:
     detached, clipped reconstruction judged against the original at
     lambda/2; one backward of both plus the aux loss."""
     model = state.model
+    gen = state.generator
     x = _to_batch(batch, next(model.parameters()).device)
-    out1 = model(x, True, None, state.generator)
+    out1 = model(x, True, z_noise(model, x, gen), gen)
     rd1 = rate_distortion_loss(out1, x, cfg.lmbda, cfg.metric)
     again = torch.clamp(out1["x_hat"].detach(), 0.0, 1.0)
-    out2 = model(again, True, None, state.generator)
+    out2 = model(again, True, z_noise(model, x, gen), gen)
     rd2 = rate_distortion_loss(out2, x, cfg.lmbda * 0.5, cfg.metric)
     aux = model.aux_loss()
-    _update(state, cfg, rd1["loss"] + rd2["loss"] + aux)
     metrics = {f"first_{k}": v.detach() for k, v in rd1.items()}
     metrics.update({k: v.detach() for k, v in rd2.items()})
     metrics["aux_loss"] = aux.detach()
+    _update(state, cfg, rd1["loss"] + rd2["loss"] + aux, metrics.values())
+    return metrics
+
+
+def poelic_train_step(state: TrainState, batch, cfg: TrainConfig, vgg,
+                      noise: torch.Tensor | None = None,
+                      style_weight: float = 100.0) -> dict:
+    """The perceptual (POELIC) step (trainer.py:140-168; reference
+    ``POELIC_Loss_Trainer``, ``compression_trainer.py:733-736``): one
+    update from ``perceptual.rate_distortion_poelic_loss`` -- Charbonnier,
+    the VGG feature distance and the patch style loss, and bpp -- plus the
+    aux loss.  ``vgg`` is a frozen ``perceptual.Vgg16Features`` on the
+    model's device, in no optimizer.  Returns the metrics as device
+    scalars, with ``grad_norm``."""
+    model = state.model
+    x = _to_batch(batch, next(model.parameters()).device)
+    if noise is None:
+        noise = z_noise(model, x, state.generator)
+    out = model(x, True, noise, state.generator)
+    rd = rate_distortion_poelic_loss(out, x, cfg.lmbda, vgg, style_weight)
+    aux = model.aux_loss()
+    metrics = {k: v.detach() for k, v in rd.items()}
+    metrics["aux_loss"] = aux.detach()
+    norm = _update(state, cfg, rd["loss"] + aux, metrics.values())
+    metrics["grad_norm"] = norm.detach()
     return metrics
 
 
@@ -194,18 +263,22 @@ class Trainer:
             raise ValueError("fit_epoch received an empty batch iterable")
         return last or {k: float(v) for k, v in metrics.items()}
 
-    def evaluate(self, images: Iterable[np.ndarray]) -> dict:
-        """Full-image validation (reference ``test_one_epoch``): each image
-        ([H,W,3] or [1,H,W,3] float in [0, 1]) padded to a multiple of 64,
-        the eval forward, PSNR and MS-SSIM (images of at least 176 px) on
-        the unpadded pixels, bpp over the true pixel count.  Returns the
-        means and ``per_image`` rows."""
+    def evaluate(self, images: Iterable[np.ndarray],
+                 save_recon_dir: str | None = None, tag: str = "") -> dict:
+        """Full-image validation (reference ``test_one_epoch``,
+        ``testing.py:107-201``): each image ([H,W,3] or [1,H,W,3] float in
+        [0, 1]) padded to a multiple of 64, the eval forward, PSNR and
+        MS-SSIM (images of at least 176 px) on the unpadded pixels, bpp
+        over the true pixel count.  With ``save_recon_dir``, each
+        reconstruction is written there as ``{tag or 'val'}_img{i}.png``.
+        Returns the means and ``per_image`` rows ``(psnr, ms_ssim, bpp,
+        loss)``."""
         model = self.model
         was_training = model.training
         model.eval()
         totals, rows = {}, []
         try:
-            for img in images:
+            for i, img in enumerate(images):
                 x = np.asarray(img, np.float32)
                 if x.ndim == 3:
                     x = x[None]
@@ -226,9 +299,21 @@ class Trainer:
                 for k, v in row.items():
                     if not np.isnan(v):
                         totals[k] = totals.get(k, 0.0) + v
+                if save_recon_dir is not None:
+                    save_png(x_hat[0], os.path.join(
+                        save_recon_dir, f"{tag or 'val'}_img{i}.png"))
         finally:
             model.train(was_training)
         means = {k: v / max(len(rows), 1) for k, v in totals.items()}
         means["per_image"] = rows
         return means
 
+
+def save_png(x_hat: torch.Tensor, path: str) -> None:
+    """An [H,W,3] image in [0, 1] as an 8-bit PNG (rounded, clipped),
+    its directory made where missing."""
+    from PIL import Image
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    rec = np.clip(x_hat.detach().float().cpu().numpy() * 255.0 + 0.5, 0,
+                  255).astype(np.uint8)
+    Image.fromarray(rec).save(path)

@@ -13,6 +13,12 @@ levels for ``Gain``, then clips and steps both optimizers as
 level's loss does not reach it (``Gain`` unless ``cfg.train_gain``,
 QuantABCD unless ``quant_offset``), so AdamW's decay moves it as optax's
 does in the JAX step.
+
+In a process group each process takes its slice of the global batch and
+the global batch's noise (``trainer.z_noise``), and the flat buffer and
+the per-level losses are averaged over the processes in one all-reduce
+before the Gram matrix: every process solves the same ``alpha`` from the
+global batch's gradients (and, under ``gradnorm="loss"``, its losses).
 """
 
 from __future__ import annotations
@@ -22,11 +28,13 @@ import functools
 import torch
 
 from mlic_tpu_torch.loss import rate_distortion_loss
+from mlic_tpu_torch.parallel.mesh import all_reduce_mean_
 from mlic_tpu_torch.train.trainer import (
     TrainConfig,
     TrainState,
     _to_batch,
     apply_gradients,
+    z_noise,
 )
 
 
@@ -45,14 +53,6 @@ def frank_wolfe_minnorm(gram: torch.Tensor, n_iters: int = 20) -> torch.Tensor:
         gamma = torch.where(denom <= 1e-12, 0.0, gamma)
         alpha = alpha + gamma * direction
     return alpha
-
-
-def z_noise(model, x: torch.Tensor, generator) -> torch.Tensor:
-    """One draw of the bottleneck's uniform noise in [-1/2, 1/2), laid out
-    [N, B*H/64*W/64] for images x [B,H,W,3] with H, W multiples of 64."""
-    b, h, w, _ = x.shape
-    return torch.rand((model.cfg.N, b * (h // 64) * (w // 64)),
-                      generator=generator, device=x.device) - 0.5
 
 
 def vbr_train_step(state: TrainState, batch, cfg: TrainConfig,
@@ -90,6 +90,7 @@ def vbr_train_step(state: TrainState, batch, cfg: TrainConfig,
         losses.append(rd["loss"].detach())
         bpps.append(rd["bpp_loss"].detach())
     losses, bpps = torch.stack(losses), torch.stack(bpps)
+    all_reduce_mean_([flat, losses, bpps])
     shared = flat[:, n_gain:]
     if gradnorm == "loss":
         shared.mul_(1.0 / torch.clamp(losses, min=1e-6)[:, None])
@@ -99,7 +100,7 @@ def vbr_train_step(state: TrainState, batch, cfg: TrainConfig,
     for p in params:
         p.grad = combined[offset:offset + p.numel()].view_as(p)
         offset += p.numel()
-    norm = apply_gradients(state, cfg)
+    norm = apply_gradients(state, cfg, reduce=False)
     return {"loss": losses.mean(), "bpp_loss": bpps.mean(),
             "loss_per_level": losses, "bpp_per_level": bpps, "alpha": alpha,
             "grad_norm": norm.detach()}

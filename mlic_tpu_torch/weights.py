@@ -13,7 +13,9 @@ flax names, so only the leaf names and layouts change --
   layers).
 
 ``to_flax`` is its inverse (the flax layout of a state_dict, to compare
-parameters and gradients leaf by leaf).  ``load_checkpoint`` reads an orbax
+parameters and gradients leaf by leaf).  ``vgg_from_flax`` carries the
+JAX package's VGG16 feature extractor (``mlic_tpu/perceptual.py``) to
+``perceptual.Vgg16Features`` the same way.  ``load_checkpoint`` reads an orbax
 directory of the JAX package or a torch file of the port.
 ``init_params`` draws random weights from the flax initializer families
 (their distributions, not their bits) with a ``torch.Generator``; the VBR
@@ -33,6 +35,7 @@ from mlic_tpu_torch.entropy.models import EntropyBottleneck
 from mlic_tpu_torch.models.context import LocalContext
 from mlic_tpu_torch.models.layers import GDN
 from mlic_tpu_torch.models.mlicpp import MLICPlusPlus
+from mlic_tpu_torch.perceptual import vgg_conv_names
 from mlic_tpu_torch.utils.checkpoint import read_orbax
 
 
@@ -64,6 +67,20 @@ def from_flax(params) -> dict:
             raise ValueError(f"two flax leaves map to {key}")
         out[key] = torch.from_numpy(np.ascontiguousarray(a))
     return out
+
+
+def vgg_from_flax(params) -> dict:
+    """The flax ``Vgg16Features`` parameters ({``conv{s}_{c}``: {kernel
+    HWIO, bias}}) -> the state_dict of the port's ``Vgg16Features``
+    (OIHW); raises where the tree is not exactly its ten convolutions."""
+    sd = from_flax(params)
+    want = {f"{n}.{leaf}" for n in vgg_conv_names()
+            for leaf in ("weight", "bias")}
+    if set(sd) != want:
+        raise ValueError(f"not a VGG16 feature tree: missing "
+                         f"{sorted(want - set(sd))}, unexpected "
+                         f"{sorted(set(sd) - want)}")
+    return sd
 
 
 def flax_path(name: str, ndim: int) -> tuple:

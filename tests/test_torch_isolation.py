@@ -41,10 +41,12 @@ def test_port_imports_without_jax():
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
-    assert len(names) >= 45                       # every module was imported
+    assert len(names) >= 52                       # every module was imported
     for name in ("tools.decode", "tools.extract_decoder", "tools.serve",
                  "tools.rd_vbr", "tools.ab_stream_format", "entropy.rans",
-                 "entropy.rans.coder"):
+                 "entropy.rans.coder", "data.autoaugment", "utils.misc",
+                 "parallel", "parallel.mesh", "parallel.serving",
+                 "perceptual", "tools.statistics"):
         assert f"mlic_tpu_torch.{name}" in names
 
 
@@ -131,7 +133,7 @@ def test_port_sources_name_no_jax_import():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "mlic_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
-    assert len(files) >= 46
+    assert len(files) >= 53
     for f in files:
         with open(f) as fh:
             assert not pat.search(fh.read()), f

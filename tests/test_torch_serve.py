@@ -169,8 +169,10 @@ def test_serve_cli_verify_and_containers(tmp_path, capsys, monkeypatch):
                        "--lanes", "16", "--verify", "--out", str(out_dir)])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line == res
-    assert set(res) == {"images", "img_s", "bpp", "verify", "parametric",
-                        "analytic_enc_rows", "device"}
+    assert set(res) == {"images", "img_s", "bpp", "verify", "sharded",
+                        "shards", "parametric", "analytic_enc_rows",
+                        "device"}
+    assert res["sharded"] is False and res["shards"] == 1
     assert res["images"] == 4 and res["verify"] and res["device"] == "cpu"
     assert res["parametric"] and res["analytic_enc_rows"] > 0
     assert 0 < res["bpp"] < 32 and res["img_s"] > 0
