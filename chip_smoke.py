@@ -50,8 +50,8 @@
    PyTorch ops it replaced; K3's chain bound read from its own SASS, its
    reciprocal divide against // over every frequency; the launches and
    host synchronizations of one ``encode_rans_v4``, from the host's
-   runtime calls: at most 6 and none, K7, K3 and K6 among the device's
-   kernels),
+   runtime calls: at most 6 and none, and K7, K3 and K6 run on the card
+   by their own device-side launch counts, ``device_proof``),
    K4 also on seeded states and tables in both modes at 16,
    256, 512 and 1024 lanes (clusters of 1, 4, 8 and 8 blocks; timed), K5
    at every shape of the path, at a ragged size and at other widths, in
@@ -194,7 +194,25 @@
    x 256^2 (ms, peak memory, finite losses) and an f32 step against the
    CPU at path 3's tolerances; ``tools.statistics`` on 4 frames, its bpp
    within 1e-6 of ``Trainer.evaluate``'s;
-20. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+20. path 12, the last modules (the ``last_modules`` line): ``tools.macs``
+   for MLICPP_S, MLICPP_M_SMALL_DEC and MLICPP_L (dense and depthwise) at
+   1920x1088 (GMACs, parameters -- L's 83.50 M and 41.72 M exact -- and the
+   forward's ms beside PARITY.md's XLA counts); ``tools.profile_codec`` at
+   batch 8, 512 lanes, bfloat16 on the trained weights (its stage sums
+   beside path 1's whole request, ``parametric`` true);
+   ``tools.microbench``'s ctx, encode, decode and fusedblk sets and
+   ``tools.profile_modules``; ``tools.jpeg_anchor`` on rd_vbr's frames and
+   ``tools.bdrate`` of rd_vbr's curve against it (finite);
+   ``tools.rd_curve`` on ``ckpts/bench_default`` against
+   ``evaluate_codec`` of the same frames; LPIPS and DISTS on seeded
+   weights (0 on identical frames, more against x_hat, the card within
+   1e-4 of the CPU); ``analysis.freq`` on the card within 1e-6 of the CPU;
+   format v2 on path 1's payload (the device bytes the host coder's, K4's
+   lane layout decoding every y phase exactly in both modes, against its
+   plain version, timed: the kernels line's ``lanes`` and ``lanes_rows``
+   rows).  Every kernel's device-side launch count over the path must
+   equal the host's;
+21. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 
 With ``--cards N`` on a host of N cards it runs path 11's scale-out
@@ -230,7 +248,8 @@ BATCH, HEIGHT, WIDTH = 8, 512, 768
 BIG_BATCH = 128                 # the North star's batch: K3, K6, K7 exact
 N_LANES = 512
 MAX_ENCODE_LAUNCHES = 6         # encode_rans_v4: K7, K3, K6 and no more
-PROFILE_ATTEMPTS = 3            # traces taken until the device shows all three
+ENCODE_KERNELS = ("rans_encode_prep", "rans_encode_scan",
+                  "rans_encode_compact")
 N_REQUESTS = 3
 STAGE_REQUESTS = 7
 ESC_SHARE = 0.03
@@ -1049,37 +1068,33 @@ def check_kernels(codec, counts, extras: bool = True):
 
     # The launches of one rANS encode: K7, K3, K6 and nothing else.  (Taken
     # before the batch-128 checks: in a run of the whole script, traces
-    # taken after them held no device events.)  Every attempt must launch
-    # at most MAX_ENCODE_LAUNCHES kernels, as the host's launch calls count
-    # them, and synchronize never; the device's records of the same trace
-    # must name K7, K3 and K6.  They have come back with some of them
-    # missing, so the trace is taken again, up to PROFILE_ATTEMPTS times,
-    # until they do; every attempt is printed.
+    # taken after them held no device events.)  The trace must hold at most
+    # MAX_ENCODE_LAUNCHES kernel launches, as the host's launch calls count
+    # them, and no synchronization.  That K7, K3 and K6 ran on the card is
+    # shown by their own device-side counts (``device_proof``), each equal
+    # to the host's, not by the trace's device records: the profiler has
+    # dropped those (it named no K7 in three traces of one run), so the
+    # records are printed and not required.
     if extras:
-        seen = [KERNEL_SYMBOLS[k] for k in (
-            "rans_encode_prep", "rans_encode_scan", "rans_encode_compact")]
-        attempts = []
-        for _ in range(PROFILE_ATTEMPTS):
-            prof = encode_profile(encode_rans_v4, sym, idx, z, tables, N_LANES,
-                                  n_phases, codec.z_rows_base)
-            prof["k7_k3_k6_on_device"] = all(
-                any(sym_ in n for n in prof["kernels"]) for sym_ in seen)
-            attempts.append(prof)
-            if prof["k7_k3_k6_on_device"]:
-                break
-        print(json.dumps({"encode_rans_v4_profile": attempts}), flush=True)
-        bad = [p for p in attempts if p["host_synchronizations"]
-               or not p["device_kernels"] <= p["kernel_launches"]
-               <= MAX_ENCODE_LAUNCHES]
-        if bad or not attempts[-1]["k7_k3_k6_on_device"]:
-            seen_by_trace = [(p["kernel_launches"], p["kernels"],
-                              p["sync_calls"]) for p in attempts]
-            raise AssertionError(f"encode_rans_v4: launches, device kernels "
-                                 f"and synchronizations of each trace: "
-                                 f"{seen_by_trace} (at most "
+        enc_args = (sym, idx, z, tables, N_LANES, n_phases, codec.z_rows_base)
+        prof = encode_profile(encode_rans_v4, *enc_args)
+        prof["device_records_name_k7_k3_k6"] = all(
+            any(KERNEL_SYMBOLS[k] in n for n in prof["kernels"])
+            for k in ENCODE_KERNELS)
+        print(json.dumps({"encode_rans_v4_profile": prof}), flush=True)
+        _, host = device_proof(lambda: encode_rans_v4(*enc_args),
+                               "encode_rans_v4",
+                               {k: 1 for k in ENCODE_KERNELS})
+        if prof["host_synchronizations"] \
+                or not prof["device_kernels"] <= prof["kernel_launches"] \
+                <= MAX_ENCODE_LAUNCHES \
+                or sum(host.values()) > MAX_ENCODE_LAUNCHES:
+            raise AssertionError(f"encode_rans_v4: {prof['kernel_launches']} "
+                                 f"launches, synchronizations "
+                                 f"{prof['sync_calls']}, {host} by the "
+                                 f"host's counts (at most "
                                  f"{MAX_ENCODE_LAUNCHES} launches and no "
-                                 f"synchronization, K7, K3 and K6 on the "
-                                 f"device)")
+                                 f"synchronization)")
 
     # K3 and K6 over the whole stream of the batch, from the prep's sections.
     (st_z, fm_z, esc_z), (st_y, fm_y, esc_y) = secs
@@ -2062,20 +2077,14 @@ def vbr_serve_path(state, frames, fixed_codec) -> tuple:
     profiles = {}
     for s in (0, VBR_TOP):
         r = rows[s]
-        for _ in range(PROFILE_ATTEMPTS):
-            prof = profile_request(
+        # the request's kernels ran on the card by their own device-side
+        # counts; the trace gives the times
+        profiles[s], _ = device_proof(
+            lambda: profile_request(
                 codec, x, {"compress": r["encode_ms"],
                            "decompress": r["decode_ms"]},
-                label=f"profile_vbr_level_{s}", level={"s": s})
-            ours = {k: prof["compress"]["port_kernels_ms_launches"][k][1]
-                    + prof["decompress"]["port_kernels_ms_launches"][k][1]
-                    for k in REQUEST_KERNELS}
-            if all(ours.values()):
-                break
-        else:
-            raise AssertionError(f"VBR level {s}: the profiler shows no "
-                                 f"launch of {ours}")
-        profiles[s] = prof
+                label=f"profile_vbr_level_{s}", level={"s": s}),
+            f"profiled VBR level {s}", {k: 1 for k in REQUEST_KERNELS})
     with tempfile.TemporaryDirectory() as d:
         ev = evaluate_codec_vbr(codec, [x[0].astype(np.float32) / 255.0], d,
                                 levels=[0, VBR_TOP], log=lambda line: None)
@@ -3212,12 +3221,13 @@ def codec_paths(model, codec, frames, kernels) -> dict:
     return counts, fb_kernels
 
 
-def rd_vbr_path() -> dict:
+def rd_vbr_path() -> tuple:
     """``tools.rd_vbr`` on path 4's MLICPP_S_VBR (the trained MLICPP_S
     through ``load_matching``) under ``bfloat16``: RD_VBR_FRAMES frames
     of RD_VBR_SIZE^2, every level and one interpolated gain through files
     (each decoded bit-exactly by ``evaluate_codec``); the tool raises
-    unless the rate is monotone in the gain.  Returns the launch counts."""
+    unless the rate is monotone in the gain.  Returns the launch counts and
+    the curve (path 12's BD-rate against JPEG reads it)."""
     from mlic_tpu_torch.ops import _build
     from mlic_tpu_torch.tools import rd_vbr
     t0 = time.perf_counter()
@@ -3241,7 +3251,7 @@ def rd_vbr_path() -> dict:
     if len(curve["bpp"]) != n_levels + 1 or not curve["monotone_rate"] \
             or not all(counts[k] for k in REQUEST_KERNELS):
         raise AssertionError(f"rd_vbr: {out}")
-    return counts
+    return counts, curve
 
 
 def l_train_path(state) -> dict:
@@ -4089,6 +4099,370 @@ def multi_card(n: int) -> int:
     return 0
 
 
+# --------------------------------------------------------------------------
+# Path 12: the last modules of the JAX package -- the RD and profiling
+# tools, the perceptual metrics, the analysis package and stream format v2
+# --------------------------------------------------------------------------
+def device_proof(fn, label: str, want: dict):
+    """Runs ``fn`` between two synchronizes and holds the device's count of
+    each kernel's launches (``ops/_build.device_launch_counts``: the
+    kernels count themselves in device memory) equal to the host's, and at
+    least ``want`` ({kernel: launches}).  Independent of the profiler: a
+    kernel that the host launched and the card never ran fails it.
+    Prints both counts; returns (``fn()``, the host's counts)."""
+    import torch
+
+    from mlic_tpu_torch.ops import _build
+    torch.cuda.synchronize()
+    h0, d0 = _build.launch_counts(), _build.device_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    h1, d1 = _build.launch_counts(), _build.device_launch_counts()
+    host = {k: h1[k] - h0[k] for k in h1}
+    dev = {k: d1[k] - d0[k] for k in d1}
+    print(json.dumps({"device_launches": {"of": label, "host": host,
+                                          "device": dev}}), flush=True)
+    short = {k: host[k] for k, n in want.items() if host[k] < n}
+    if dev != host or short:
+        raise AssertionError(f"{label}: launches on the device {dev}, by the "
+                             f"host {host}; too few: {short} (want {want})")
+    return out, host
+
+
+# Path 12's MACs rows: (model, depthwise override) at 1920x1088.
+MACS_CASES = (("MLICPP_S", None), ("MLICPP_M_SMALL_DEC", None),
+              ("MLICPP_L", False), ("MLICPP_L", None))
+L_PARAMS_M = {False: 83.50, None: 41.72}    # PARITY.md:11-12
+METRIC_ATOL = {"lpips": 1e-5, "dists": 1e-4}  # tests/test_perceptual_metrics
+METRIC_CARD_CPU = 1e-4
+FREQ_CARD_CPU = 1e-6
+TOOL_REPS = 5
+
+
+def macs_rows() -> list:
+    """``tools.macs`` at 1920x1088: torch GMACs (FlopCounterMode on the
+    meta device), parameters and the forward's ms on the card, beside the
+    JAX tool's XLA count (PARITY.md)."""
+    from mlic_tpu_torch.tools import macs
+    rows = []
+    for name, dw in MACS_CASES:
+        r = macs.decoder_cost(name, 1088, 1920, depthwise=dw, device="cuda")
+        r["convs"] = "dense" if dw is False else "config"
+        rows.append(r)
+        if name == "MLICPP_L" and round(r["params_m"], 2) != L_PARAMS_M[dw]:
+            raise AssertionError(f"MLICPP_L ({r['convs']}): {r['params_m']} "
+                                 f"M parameters, PARITY.md has "
+                                 f"{L_PARAMS_M[dw]} M")
+        if not (np.isfinite(r["gmacs"]) and r["gmacs"] > 0
+                and r["forward_ms"] > 0):
+            raise AssertionError(f"macs: {r}")
+    return rows
+
+
+def with_env(env: dict, fn):
+    """``fn()`` with ``env`` set, the variables restored after."""
+    before = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def profile_tools(wall_ms: dict) -> dict:
+    """``tools.profile_codec`` (batch 8, 512 lanes, bfloat16, the trained
+    weights) beside path 1's whole request, ``tools.microbench``'s ctx,
+    encode, decode and fusedblk sets and ``tools.profile_modules``, in this
+    process, a few reps each."""
+    import contextlib
+    import io
+
+    from mlic_tpu_torch.tools import (microbench, profile_codec,
+                                      profile_modules)
+
+    def quiet(fn):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            return fn()
+
+    prof = quiet(lambda: with_env(
+        {"PROF_BATCH": str(BATCH), "PROF_LANES": str(N_LANES),
+         "PROF_REPS": "2", "PROF_BF16": "1", "PROF_CKPT": CHECKPOINT},
+        lambda: profile_codec.main([])))
+    stages = prof["ms_per_image"]
+    split = {ph: sum(v for k, v in stages.items() if k.startswith(ph[0]))
+             * BATCH for ph in ("compress", "decompress")}
+    prof["stage_sum_ms_per_batch"] = split
+    prof["path1_whole_ms_per_batch"] = wall_ms
+    if not prof["parametric"] or not prof["analytic_enc_rows"]:
+        raise AssertionError(f"profile_codec: a fallback table: {prof}")
+    bench = {}
+    for which in ("ctx", "encode", "decode", "fusedblk"):
+        bench[which] = quiet(lambda: with_env(
+            {"MB_SET": which, "MB_REPS": str(TOOL_REPS),
+             "MB_CKPT": CHECKPOINT}, lambda: microbench.main([])))
+    modules = quiet(lambda: with_env({"PM_REPS": "3"},
+                                     lambda: profile_modules.main([])))
+    bad = [r for out in (*bench.values(), modules) for r in out["modules"]
+           if not (np.isfinite(r["ms_per_call"]) and r["ms_per_call"] > 0)]
+    if bad:
+        raise AssertionError(f"microbench / profile_modules rows: {bad}")
+    return {"profile_codec": prof, "microbench": bench,
+            "profile_modules": modules}
+
+
+def rd_tools(state, frames, vbr_curve: dict) -> dict:
+    """``tools.jpeg_anchor`` on rd_vbr's frames and ``tools.bdrate`` of
+    rd_vbr's curve (the trained MLICPP_S_VBR) against it; ``tools.rd_curve``
+    on ``ckpts/bench_default`` over two of path 1's frames against
+    ``evaluate_codec`` of the same weights and frames in this process."""
+    from PIL import Image
+
+    from mlic_tpu_torch.codec import Codec
+    from mlic_tpu_torch.eval import evaluate_codec
+    from mlic_tpu_torch.models.registry import get_model
+    from mlic_tpu_torch.tools import bdrate, jpeg_anchor, rd_curve
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        vbr_path = os.path.join(d, "rd_vbr.json")
+        with open(vbr_path, "w") as f:
+            json.dump(vbr_curve, f)
+        jpeg = jpeg_anchor.main(["--out", os.path.join(d, "jpeg.json"),
+                                 "--n-images", str(RD_VBR_FRAMES),
+                                 "--image-size", str(RD_VBR_SIZE)])
+        bd = bdrate.main(["--test", vbr_path, "--anchor",
+                          os.path.join(d, "jpeg.json")])
+        out["jpeg"] = {k: jpeg[k] for k in ("bpp", "psnr", "quality")}
+        out["vbr"] = {k: vbr_curve[k] for k in ("bpp", "psnr")}
+        out["bdrate_vbr_vs_jpeg"] = bd
+        if not all(np.isfinite(v) for v in bd.values()):
+            raise AssertionError(f"BD-rate against JPEG not finite: {bd}")
+        img_dir = os.path.join(d, "frames")
+        os.makedirs(img_dir)
+        for i in range(2):
+            Image.fromarray(frames[0][i]).save(
+                os.path.join(img_dir, f"f{i}.png"))
+        curve = rd_curve.main([
+            "--model", MODEL, "--ckpts", CHECKPOINT, "--lambdas",
+            str(LMBDA), "--out", os.path.join(d, "rd.json"), "--images",
+            img_dir, "--n-images", "2", "--backend", "device",
+            "--save-dir", os.path.join(d, "rd_eval")])
+        model = get_model(MODEL)
+        model.load_state_dict(state)
+        codec = Codec(model, device="cuda")
+        codec.update()
+        ref = evaluate_codec(codec, [f.astype(np.float32) / 255.0
+                                     for f in frames[0][:2]],
+                             os.path.join(d, "ref_eval"), log=lambda l: None)
+    out["rd_curve"] = {k: curve[k] for k in ("bpp", "psnr", "ms_ssim",
+                                             "backend")}
+    out["evaluate_codec"] = {k: ref[k] for k in ("bpp", "psnr", "ms_ssim")}
+    if abs(curve["bpp"][0] - ref["bpp"]) > 1e-6 \
+            or abs(curve["psnr"][0] - ref["psnr"]) > 1e-4:
+        raise AssertionError(f"rd_curve {out['rd_curve']} differs from "
+                             f"evaluate_codec {out['evaluate_codec']}")
+    return out
+
+
+def metrics_and_analysis(frames, x_hat) -> dict:
+    """LPIPS and DISTS on seeded weights (0 on identical frames, more on a
+    frame against its reconstruction, the card within METRIC_CARD_CPU of
+    the CPU on a crop) and ``analysis.freq`` features and clustering on the
+    card against the CPU."""
+    import torch
+
+    from mlic_tpu_torch import perceptual_metrics as pm
+    from mlic_tpu_torch.analysis import cluster, freq
+    a = torch.from_numpy(frames[0][:2].astype(np.float32) / 255.0)
+    b = x_hat[:2].float().clamp(0, 1).cpu()
+    out = {}
+    for name, init, fn in (("lpips", pm.init_lpips, pm.lpips_fn),
+                           ("dists", pm.init_dists, pm.dists_fn)):
+        sd = init(torch.Generator().manual_seed(SEED))
+        card, cpu = fn(sd, "cuda"), fn(sd, "cpu")
+        same = card(a.cuda(), a.cuda()).cpu()
+        diff = card(a.cuda(), b.cuda()).cpu()
+        crop = (slice(None), slice(0, 128), slice(0, 128))
+        on_card = card(a[crop].cuda(), b[crop].cuda()).cpu()
+        on_cpu = cpu(a[crop], b[crop])
+        gap = float((on_card - on_cpu).abs().max())
+        out[name] = {"identical": same.tolist(), "x_vs_x_hat": diff.tolist(),
+                     "card_vs_cpu_max_abs": gap}
+        if float(same.abs().max()) > METRIC_ATOL[name] \
+                or not float(diff.min()) > METRIC_ATOL[name] \
+                or gap > METRIC_CARD_CPU:
+            raise AssertionError(f"{name} on seeded weights: {out[name]}")
+    imgs = list(frames[0][:4])
+    card = freq.frequency_features(imgs, 16, "cuda")
+    cpu = freq.frequency_features(imgs, 16, "cpu")
+    gap = float(np.abs(card - cpu).max())
+    clusters = cluster.cluster_images(imgs, k=2, device="cuda")
+    out["freq"] = {"features_card_vs_cpu_max_abs": gap,
+                   "labels": clusters["labels"].tolist()}
+    if gap > FREQ_CARD_CPU:
+        raise AssertionError(f"analysis.freq: card and CPU differ by {gap}")
+    return out
+
+
+def v2_host_streams(codec, sym, idx) -> list:
+    """The port's host ``encode_interleaved`` of each image's y phases,
+    each phase padded to a lane multiple with pad-row symbols: the oracle
+    of the device's v2 bytes."""
+    from mlic_tpu_torch.entropy.rans.coder import encode_interleaved
+    _, lengths, offsets, table = codec._gauss
+    n_phases = 2 * codec.model.cfg.slice_num
+    n_per = sym.shape[1] // n_phases
+    pad = -n_per % N_LANES
+    sym = np.pad(sym.reshape(len(sym), n_phases, n_per),
+                 ((0, 0), (0, 0), (0, pad)))
+    idx = np.pad(idx.reshape(len(idx), n_phases, n_per),
+                 ((0, 0), (0, 0), (0, pad)),
+                 constant_values=codec.z_rows_base - 1)
+    return [encode_interleaved(s_b.ravel(), i_b.ravel(), N_LANES, table,
+                               lengths, offsets) for s_b, i_b in zip(sym, idx)]
+
+
+def v2_path(codec) -> list:
+    """Format v2 on path 1's batch-8 payload at 512 lanes: the device
+    encode (K7, K3, the per-lane compaction) byte-equal to the host coder;
+    K4's lane layout decoding every y phase, parametric and by the integer
+    rows, exactly back to the payload, each launch against its plain
+    version; timed (the kernels line's ``lanes`` rows)."""
+    import torch
+
+    from mlic_tpu_torch.entropy import device_rans as dr
+    from mlic_tpu_torch.entropy.stream import (assemble_lane_streams,
+                                               lane_decode_inputs)
+    from mlic_tpu_torch.ops import _build
+    dev, tables = codec.device, codec.tables
+    n_phases = 2 * codec.model.cfg.slice_num
+    sym_np, idx_np, _ = make_payload(codec, np.random.default_rng(SEED + 12))
+    sym, idx = (torch.from_numpy(a).to(dev) for a in (sym_np, idx_np))
+    enc = functools.partial(dr.encode_interleaved_device, sym, idx, tables,
+                            N_LANES, n_phases, "lanes",
+                            codec.analytic_enc_rows)
+    comp, _ = device_proof(enc, "v2 encode", {"rans_encode_prep": 1,
+                                              "rans_encode_scan": 1})
+    streams = assemble_lane_streams(comp, N_LANES)
+    host = v2_host_streams(codec, sym_np, idx_np)
+    if streams != host:
+        bad = [b for b, (s1, s2) in enumerate(zip(streams, host)) if s1 != s2]
+        raise AssertionError(f"v2: device bytes differ from the host coder's "
+                             f"for images {bad}")
+    args = lane_decode_inputs(streams, dev)
+    pad_row = codec.z_rows_base - 1
+    n_per = idx.shape[1] // n_phases
+    lengths = codec._gauss[1]
+    row_steps = int(np.ceil(np.log2(lengths.max())))
+    rows_ph = [dr.phase_order(idx[:, k * n_per:(k + 1) * n_per], N_LANES,
+                              pad_row).contiguous() for k in range(n_phases)]
+    out = []
+    for mode, parametric, steps in (("lanes", True, codec.n_steps),
+                                    ("lanes_rows", False, row_steps)):
+        x, ptr = dr.rans_init(args["words"], args["lane_begin"])
+        esc_count = torch.zeros_like(args["esc_begin"])
+        decoded, err, timed = [], 0.0, None
+        h0 = _build.launch_counts()["rans_decode_phase"]
+
+        def run_phases():
+            nonlocal x, ptr, esc_count, err, timed
+            for k, rws in enumerate(rows_ph):
+                call = functools.partial(
+                    dr.rans_decode_phase, args["words"], x, ptr, N_LANES,
+                    steps, rws, tables, parametric, "lanes")
+                got = call()
+                ref = dr.rans_decode_phase_plain(
+                    args["words"], x, ptr, N_LANES, steps, rws, tables,
+                    parametric, "lanes")
+                err = max(err, max_abs_err(zip(got, ref)))
+                if k == 0:
+                    timed = (call, functools.partial(
+                        dr.rans_decode_phase_plain, args["words"], x, ptr,
+                        N_LANES, steps, rws, tables, parametric, "lanes"),
+                        rws, got, ptr)
+                sym_k, esc_count = dr.patch_escapes(
+                    got[0], got[1], esc_count, args["esc"],
+                    args["esc_begin"], N_LANES)
+                decoded.append(sym_k.reshape(-1, BATCH, N_LANES).permute(
+                    1, 0, 2).reshape(BATCH, -1)[:, :n_per])
+                x, ptr = got[2], got[3]
+
+        device_proof(run_phases, f"K4 {mode}",
+                     {"rans_decode_phase": n_phases})
+        launches = _build.launch_counts()["rans_decode_phase"] - h0
+        if err != 0.0 or not torch.equal(torch.cat(decoded, 1), sym):
+            raise AssertionError(f"K4 {mode}: max abs err {err} against its "
+                                 f"plain version, or the payload differs")
+        call, plain, rws, got1, ptr0 = timed
+        P = rws.numel()
+        consumed = int((got1[3] - ptr0).sum())
+        table_bytes = (tables["row_params"] if parametric
+                       else tables["cdf_rows"]).numel() * 4
+        ops = (float(torch.floor(torch.log2(tables["row_params"][
+            rws.long(), 5].double().clamp(min=1))).sum()) * CDF_OPS + 20 * P
+            if parametric else P * (2 * steps + 20))
+        bms, by = bound(4 * P + 5 * P + 2 * consumed + 16 * rws.shape[1]
+                        + table_bytes, ops)
+        group = dr.decode_group(N_LANES)
+        rounds = -(-steps // (group.bit_length() - 1))
+        row = {"name": "rans_decode_phase", "mode": mode, "route": "cuda",
+               "source": "mlic_tpu_torch/csrc/rans_decode.cu",
+               "replaces": "mlic_tpu/entropy/device_rans.py:169",
+               "launches": launches, "status": "exact", "max_abs_err": err,
+               "ms": cuda_ms(call, 10), "plain_ms": cuda_ms(plain, 1),
+               "bound_ms": bms, "bound_by": by, "library_ms": None,
+               "kernel_ms": kernel_ms(call,
+                                      KERNEL_SYMBOLS["rans_decode_phase"]),
+               "queued_ms": queued_ms(call), "shape": list(rws.shape),
+               "levels": steps, "phases_checked": n_phases,
+               "threads_per_lane": group, "steps": rws.shape[0]}
+        if not parametric:
+            # the chain, as the global layout's row mode: each step waits
+            # on rounds - 1 dependent loads of the rows after the first,
+            # each an L2 hit at least, then its word read
+            mhz = sm_clock_max_mhz()
+            row.update(chain_bound_ms=rws.shape[0] * rounds * L2_HIT_CYCLES
+                       / (mhz * 1e3), chain_loads_a_step=rounds,
+                       l2_hit_cycles=L2_HIT_CYCLES, sm_clock_max_mhz=mhz)
+        out.append(row)
+    print(json.dumps({"v2_path": {"images": BATCH, "lanes": N_LANES,
+                                  "bytes": [len(s) for s in streams],
+                                  "device_equals_host": True,
+                                  "k4_lanes": out}}), flush=True)
+    return out
+
+
+def last_modules_path(state, codec, frames, wall_ms: dict,
+                      vbr_curve: dict) -> tuple:
+    """Path 12 (the ``last_modules`` line): ``tools.macs``,
+    ``tools.profile_codec``, ``tools.microbench``, ``tools.profile_modules``,
+    ``tools.jpeg_anchor`` with ``tools.bdrate`` against rd_vbr's curve,
+    ``tools.rd_curve`` against ``evaluate_codec``, LPIPS and DISTS, the
+    analysis package and format v2 with K4's lane layout.  Returns the
+    path's launch counts and K4's lane-layout rows of the kernels line."""
+    from mlic_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+
+    def run():
+        enc = codec.compress(frames[0])
+        out = {"macs": macs_rows(), **profile_tools(wall_ms),
+               "rd": rd_tools(state, frames, vbr_curve),
+               "metrics_analysis": metrics_and_analysis(frames,
+                                                        enc["x_hat"])}
+        return out, v2_path(codec)
+
+    # every kernel ran on the card in this path, by its own device count
+    (out, lanes_rows), counts = device_proof(
+        run, "path 12", dict.fromkeys(_build.KERNELS, 1))
+    out.update(launches=counts, path_s=time.perf_counter() - t0)
+    print(json.dumps({"last_modules": out}), flush=True)
+    return counts, lanes_rows
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4174,7 +4548,9 @@ def main(argv=None) -> int:
     del trainer
     vbr_counts, vbr_profiles = vbr_serve_path(state, frames, codec)
     vbr_train_counts = vbr_train_path(state)
-    rd_counts = rd_vbr_path()
+    rd_counts, rd_curve = rd_vbr_path()
+    last_counts, lanes_rows = last_modules_path(state, codec, frames,
+                                                wall_ms, rd_curve)
     l_counts = l_path(frames, pool)
     l_train_counts = l_train_path(l_counts.pop("state"))
     sd_counts = sd_path(frames, l_counts["g_s_ms"])
@@ -4197,7 +4573,8 @@ def main(argv=None) -> int:
                                  "train_L": l_train_counts[k["name"]],
                                  "train_small_decoder_frozen":
                                      sd_train_counts[k["name"]],
-                                 "scale_out": scale_counts[k["name"]]}
+                                 "scale_out": scale_counts[k["name"]],
+                                 "last_modules": last_counts[k["name"]]}
         at_l = [r for r in l_counts["kernels"] if r["name"] == k["name"]]
         if at_l:
             k["at_MLICPP_L"] = {key: at_l[0][key] for key in AT_L_KEYS
@@ -4208,7 +4585,9 @@ def main(argv=None) -> int:
             for s, p in vbr_profiles.items()}
     for k in fb_kernels:
         k["launches_by_path"] = {"codec_paths": k["launches"]}
-    kernels += fb_kernels
+    for k in lanes_rows:
+        k["launches_by_path"] = {"last_modules": k["launches"]}
+    kernels += fb_kernels + lanes_rows
     pool_cache.cleanup()
     os.environ.pop("MLIC_POOL_CACHE")
     print(card, flush=True)

@@ -14,6 +14,7 @@
 #include <cuda_runtime.h>
 
 #include "cdf.cuh"
+#include "launch_count.cuh"
 
 namespace {
 
@@ -25,6 +26,7 @@ __global__ void eval_cdf_kernel(const int* __restrict__ k,
                                 const float* __restrict__ B,
                                 int* __restrict__ out, long long n_total,
                                 long long n_cols) {
+  count_device_launch();
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
@@ -51,3 +53,5 @@ extern "C" int eval_cdf_launch(const int* k, const float* m, const float* b,
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+MLIC_DEVICE_LAUNCH_COUNTER(eval_cdf)

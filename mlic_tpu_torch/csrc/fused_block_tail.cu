@@ -88,6 +88,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_count.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -194,6 +196,7 @@ fused_block_tail_kernel(const T* __restrict__ mid, const T* __restrict__ skip,
                         const float* __restrict__ gamma,
                         const float* __restrict__ beta, int C, int N, int H,
                         int W, int act) {
+  count_device_launch();
   constexpr int TW = kTileW;
   constexpr int P = kTileH * TW;         // pixels of the tile
   constexpr int NG = kThreads / TW;      // channel groups of a pass
@@ -615,6 +618,7 @@ fused_block_tail_tc_kernel(const bf16* __restrict__ mid,
                            const float* __restrict__ gamma,
                            const float* __restrict__ beta, int B, int C, int N,
                            int H, int W, int act, int vec) {
+  count_device_launch();
   extern __shared__ __align__(16) unsigned char smem[];
   const Plan L = plan(C, N, act);
   bf16* A = reinterpret_cast<bf16*>(smem);            // [kP][lda]
@@ -990,3 +994,5 @@ extern "C" int fused_block_tail_launch(
       act, vec);
   return static_cast<int>(cudaGetLastError());
 }
+
+MLIC_DEVICE_LAUNCH_COUNTER(fused_block_tail)

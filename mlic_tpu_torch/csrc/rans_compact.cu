@@ -70,6 +70,7 @@
 #include <stdint.h>
 
 #include "rans_layout.cuh"
+#include "launch_count.cuh"
 
 namespace {
 
@@ -216,6 +217,7 @@ rans_compact_kernel(EncodeLayout lay, int steps_per_item, int items_per_image,
                     Status* status, uint16_t* __restrict__ buf,
                     int* __restrict__ img_n, int* __restrict__ ebuf,
                     int* __restrict__ ecount) {
+  count_device_launch();
   __shared__ int s_item;
   __shared__ unsigned long long s_epoch;
   __shared__ uint16_t s_out[kThreads * 32];    // the item's emitted words
@@ -372,3 +374,5 @@ extern "C" int rans_compact_launch(const uint32_t* masks, const uint16_t* words,
       static_cast<Status*>(status), buf, img_n, ebuf, ecount);
   return static_cast<int>(cudaGetLastError());
 }
+
+MLIC_DEVICE_LAUNCH_COUNTER(rans_encode_compact)

@@ -1,10 +1,21 @@
-// Interleaved rans16 decode of one coding phase, stream format v3/v4
-// (global emission order).
+// Interleaved rans16 decode of one coding phase, in either stream layout:
+// format v3/v4 (global emission order) or format v2 (per-lane word blocks).
 //
 // Replaces the lax.scan of mlic_tpu/entropy/device_rans.py:169
-// (make_decoder, fmt="global"): the parametric step (_step_parametric :277),
-// the integer-row step of the v4 z section (_step_rowtab :237) and the
-// renormalization (_renorm_global :152).  The escape patch stays in PyTorch.
+// (make_decoder, fmt="global" and fmt="lanes"): the parametric step
+// (_step_parametric :277), the integer-row step of the v4 z section
+// (_step_rowtab :237) and the renormalization (_renorm_global :152, and
+// _renorm :130 for the lane layout).  The escape patch stays in PyTorch.
+//
+// The lane layout (format v2): each lane's words lie in a block of their
+// own, [state hi, state lo, renorm words in decode order], starting at
+// lane_begin[l] (the caller's rans_init: x = w[b] << 16 | w[b + 1], ptr =
+// b + 2).  The carry's pointer is then one a lane (ptr_in/ptr_out [B *
+// n_lanes]), and a lane whose state fell below 2^16 reads words[ptr++]: no
+// rank across the image's lanes, no barrier and no exchange in the
+// cluster.  The search is the same in both layouts.  This layout is a
+// first, simple version: it reads each word where its lane finds it, with
+// no prefetch.
 //
 // Both modes read one row index a position (rows, int32 [S, B*n_lanes]).
 // Per step and lane:
@@ -77,6 +88,7 @@
 #include <stdint.h>
 
 #include "cdf.cuh"
+#include "launch_count.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -179,8 +191,10 @@ __device__ __forceinline__ int first_round(const Cdf& cdf, int hi, int t) {
 }
 
 // One launch decodes S steps of every lane of every image: parametric
-// (kRows false: row_params) or by integer rows (kRows true: cdf_rows).
-template <int T, bool kRows>
+// (kRows false: row_params) or by integer rows (kRows true: cdf_rows), in
+// the global layout (kLanes false: a pointer an image) or the lane layout
+// (kLanes true: a pointer a lane).
+template <int T, bool kRows, bool kLanes>
 __global__ void __launch_bounds__(kMaxThreads) rans_decode_kernel(
     const uint16_t* __restrict__ words, long long n_words,
     const long long* __restrict__ x_in, const int* __restrict__ ptr_in,
@@ -190,6 +204,7 @@ __global__ void __launch_bounds__(kMaxThreads) rans_decode_kernel(
     const float* __restrict__ row_params, int n_param_rows,
     const int* __restrict__ cdf_rows, int width,
     const int* __restrict__ max_value_t, const int* __restrict__ offsets_t) {
+  count_device_launch();
   // Readers per warp, double-buffered by the step's parity so that one
   // block barrier a step orders their writes and reads.  slots[parity][r]
   // holds block r's readers of a step, tagged with the step: block r
@@ -267,11 +282,11 @@ __global__ void __launch_bounds__(kMaxThreads) rans_decode_kernel(
   }
 
   uint32_t x = static_cast<uint32_t>(x_in[g]);
-  long long ptr = ptr_in[b];
+  long long ptr = kLanes ? ptr_in[g] : ptr_in[b];
   // Words are read in order: bring the lines two to three steps ahead into
   // L2 (one prefetch per 64 words), the first steps' lines at the start.
   auto prefetch = [&](long long from) {
-    if (t == T - 1 && (l & 63) == 0) {
+    if (!kLanes && t == T - 1 && (l & 63) == 0) {
       const long long p = min(from + l, n_words - 1);
       asm volatile("prefetch.global.L2 [%0];\n" ::"l"(words + p));
     }
@@ -325,9 +340,17 @@ __global__ void __launch_bounds__(kMaxThreads) rans_decode_kernel(
       esc[i] = e;
     }
 
+    const bool need = live && x < (1u << 16);
+    if constexpr (kLanes) {
+      // the lane's own block: its next word
+      if (need) {
+        x = (x << 16) | __ldg(words + min(ptr, n_words - 1));
+        ++ptr;
+      }
+      continue;
+    }
     // Rank of this lane's read among the image's reading lanes.
     const int buf = s & 1;
-    const bool need = live && x < (1u << 16);
     const unsigned ballot = __ballot_sync(kFullWarp, need) & leaders;
     if (wl == 0) warp_counts[buf][warp] = __popc(ballot);
     __syncthreads();
@@ -362,8 +385,11 @@ __global__ void __launch_bounds__(kMaxThreads) rans_decode_kernel(
     ptr += total;
     prefetch(ptr + 2 * n_lanes);
   }
-  if (t == 0 && live) x_out[g] = static_cast<long long>(x);
-  if (tid == 0 && rank == 0) ptr_out[b] = static_cast<int>(ptr);
+  if (t == 0 && live) {
+    x_out[g] = static_cast<long long>(x);
+    if (kLanes) ptr_out[g] = static_cast<int>(ptr);
+  }
+  if (!kLanes && tid == 0 && rank == 0) ptr_out[b] = static_cast<int>(ptr);
   // No block leaves while another may still store into its slots.
   if (n_blocks > 1) cluster.sync();
 }
@@ -372,15 +398,17 @@ template <int T>
 cudaError_t launch(const uint16_t* words, long long n_words,
                    const long long* x_in, const int* ptr_in, long long* x_out,
                    int* ptr_out, int* sym, bool* esc, int S, int n_images,
-                   int n_lanes, int mode, const int* rows, int n_steps,
-                   const float* row_params, int n_param_rows,
+                   int n_lanes, int mode, int layout, const int* rows,
+                   int n_steps, const float* row_params, int n_param_rows,
                    const int* cdf_rows, int width, const int* max_value,
                    const int* offsets, cudaStream_t stream) {
   const int blocks = cluster_blocks(n_lanes, T);
   if (blocks == 0) return cudaErrorInvalidValue;
   const int rounds = (n_steps + log2_int(T) - 1) / log2_int(T);
-  auto kernel = mode == 1 ? rans_decode_kernel<T, true>
-                          : rans_decode_kernel<T, false>;
+  auto kernel = mode == 1 ? (layout == 1 ? rans_decode_kernel<T, true, true>
+                                         : rans_decode_kernel<T, true, false>)
+                          : (layout == 1 ? rans_decode_kernel<T, false, true>
+                                         : rans_decode_kernel<T, false, false>);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_images * blocks);
   cfg.blockDim = dim3((n_lanes / blocks * T + 31) / 32 * 32);
@@ -396,8 +424,8 @@ cudaError_t launch(const uint16_t* words, long long n_words,
   // A cluster the card cannot place is refused before any launch (asked
   // once per kernel and cluster shape, 0 unknown, 1 yes, -1 no; the answer
   // does not change within a process).
-  static int placeable[2][kMaxCluster + 1][kMaxThreads / 32 + 1] = {};
-  int& ok = placeable[mode][blocks][cfg.blockDim.x / 32];
+  static int placeable[2][2][kMaxCluster + 1][kMaxThreads / 32 + 1] = {};
+  int& ok = placeable[mode][layout][blocks][cfg.blockDim.x / 32];
   if (ok == 0) {
     int n_clusters = 0;
     const cudaError_t err =
@@ -421,9 +449,9 @@ cudaError_t launch(const uint16_t* words, long long n_words,
 }
 
 int check_args(long long n_words, int S, int n_images, int n_lanes, int mode,
-               const int* rows, const float* row_params, int n_param_rows,
-               const int* cdf_rows, int width, const int* max_value,
-               const int* offsets) {
+               int layout, const int* rows, const float* row_params,
+               int n_param_rows, const int* cdf_rows, int width,
+               const int* max_value, const int* offsets) {
   // Lane counts: below 32, or whole warps up to 1024 (the codec's rule).
   const bool lanes_ok = n_lanes >= 1 && n_lanes <= 1024 &&
                         (n_lanes < 32 || n_lanes % 32 == 0);
@@ -432,8 +460,9 @@ int check_args(long long n_words, int S, int n_images, int n_lanes, int mode,
                       n_param_rows <= kMaxParamRows
                 : mode == 1 && cdf_rows != nullptr && width >= 2 &&
                       max_value != nullptr && offsets != nullptr;
-  if (!lanes_ok || !tables_ok || rows == nullptr || n_images < 1 ||
-      n_words < 1 || S < 0 || S >= (1 << 21) - 1) {
+  if (!lanes_ok || !tables_ok || (layout != 0 && layout != 1) ||
+      rows == nullptr || n_images < 1 || n_words < 1 || S < 0 ||
+      S >= (1 << 21) - 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return 0;
@@ -443,23 +472,28 @@ int check_args(long long n_words, int S, int n_images, int n_lanes, int mode,
 
 // mode 0: parametric (row_params f32 [n_param_rows, 6]); mode 1: integer
 // rows (cdf_rows int32 [*, width], max_value, offsets).  rows int32
-// [S, n_images * n_lanes] in both.
+// [S, n_images * n_lanes] in both.  layout 0: global emission order, word
+// pointers ptr_in/ptr_out int32 [n_images]; layout 1: per-lane blocks,
+// pointers int32 [n_images * n_lanes].
 extern "C" int rans_decode_launch(
     const uint16_t* words, long long n_words, const long long* x_in,
     const int* ptr_in, long long* x_out, int* ptr_out, int* sym, bool* esc,
-    int S, int n_images, int n_lanes, int mode, const int* rows, int n_steps,
-    const float* row_params, int n_param_rows, const int* cdf_rows, int width,
-    const int* max_value, const int* offsets, void* stream) {
-  const int rc = check_args(n_words, S, n_images, n_lanes, mode, rows,
-                            row_params, n_param_rows, cdf_rows, width,
+    int S, int n_images, int n_lanes, int mode, int layout, const int* rows,
+    int n_steps, const float* row_params, int n_param_rows,
+    const int* cdf_rows, int width, const int* max_value, const int* offsets,
+    void* stream) {
+  const int rc = check_args(n_words, S, n_images, n_lanes, mode, layout,
+                            rows, row_params, n_param_rows, cdf_rows, width,
                             max_value, offsets);
   if (rc != 0) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto run = [&](auto fn) {
     return static_cast<int>(fn(words, n_words, x_in, ptr_in, x_out, ptr_out,
-                               sym, esc, S, n_images, n_lanes, mode, rows,
-                               n_steps, row_params, n_param_rows, cdf_rows,
-                               width, max_value, offsets, s));
+                               sym, esc, S, n_images, n_lanes, mode, layout,
+                               rows, n_steps, row_params, n_param_rows,
+                               cdf_rows, width, max_value, offsets, s));
   };
   return lane_group(n_lanes) == 8 ? run(launch<8>) : run(launch<4>);
 }
+
+MLIC_DEVICE_LAUNCH_COUNTER(rans_decode_phase)

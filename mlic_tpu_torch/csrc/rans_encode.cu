@@ -48,6 +48,7 @@
 #include <stdint.h>
 
 #include "rans_layout.cuh"
+#include "launch_count.cuh"
 
 namespace {
 
@@ -128,6 +129,7 @@ rans_encode_kernel(EncodeLayout lay, const int32_t* __restrict__ z_start,
                    long long* __restrict__ x_out,
                    uint16_t* __restrict__ words,
                    uint32_t* __restrict__ masks) {
+  count_device_launch();
   extern __shared__ __align__(16) unsigned char smem[];
   int2* raw = reinterpret_cast<int2*>(smem);        // [2][kChunk][32]
   Prep* prep = reinterpret_cast<Prep*>(             // [kSlots][kChunk][32]
@@ -351,3 +353,5 @@ extern "C" int rans_divmod_launch(const uint32_t* x, const uint32_t* freq,
                   0, static_cast<cudaStream_t>(stream)>>>(x, freq, q, n);
   return static_cast<int>(cudaGetLastError());
 }
+
+MLIC_DEVICE_LAUNCH_COUNTER(rans_encode_scan)

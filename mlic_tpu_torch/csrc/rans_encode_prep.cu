@@ -43,6 +43,7 @@
 #include <stdint.h>
 
 #include "cdf.cuh"
+#include "launch_count.cuh"
 
 namespace {
 
@@ -77,6 +78,7 @@ __global__ void __launch_bounds__(kThreads) rans_encode_prep_kernel(
     int* __restrict__ z_start, int* __restrict__ z_freqm1,
     bool* __restrict__ z_esc, int* __restrict__ y_start,
     int* __restrict__ y_freqm1, bool* __restrict__ y_esc) {
+  count_device_launch();
   __shared__ float tab[kMaxRows * kCols];
   if (!y_gather) {
     for (int i = threadIdx.x; i < n_rows * kCols; i += blockDim.x)
@@ -155,3 +157,5 @@ extern "C" int rans_encode_prep_launch(
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+MLIC_DEVICE_LAUNCH_COUNTER(rans_encode_prep)

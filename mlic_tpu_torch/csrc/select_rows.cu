@@ -14,6 +14,8 @@
 // iteration, coalesced int32 reads and f32 column-plane writes.
 #include <cuda_runtime.h>
 
+#include "launch_count.cuh"
+
 namespace {
 
 constexpr int kMaxRows = 128;
@@ -23,6 +25,7 @@ __global__ void select_rows_kernel(const int* __restrict__ rows,
                                    const float* __restrict__ table,
                                    float* __restrict__ out, long long n,
                                    int n_rows, int n_cols) {
+  count_device_launch();
   __shared__ float tab[kMaxRows * kMaxCols];
   for (int i = threadIdx.x; i < n_rows * n_cols; i += blockDim.x) {
     tab[i] = table[i];
@@ -58,3 +61,5 @@ extern "C" int select_rows_launch(const int* rows, const float* table,
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+MLIC_DEVICE_LAUNCH_COUNTER(select_rows)

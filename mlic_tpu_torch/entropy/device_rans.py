@@ -585,10 +585,31 @@ def _renorm_global_plain(x, img_ptr, words):
     return x, img_ptr + need_i.sum(1, dtype=torch.int32)
 
 
+def rans_init(words: torch.Tensor, lane_begin: torch.Tensor):
+    """Format-v2 lane states (device_rans.py:121): lane l's block opens at
+    ``lane_begin[l]`` with its state [hi, lo].  Returns (x int64 [L],
+    ptr int32 [L], each lane's first renorm word)."""
+    b = lane_begin.long()
+    x = ((words[b].long() & _MASK16) << 16) | (words[b + 1].long() & _MASK16)
+    return x, (lane_begin + 2).to(torch.int32)
+
+
+def _renorm_lanes_plain(x, ptr, words):
+    """The lanes whose state fell below 2^16 read the next word of their
+    own block (device_rans.py:130)."""
+    need = x < _RANS_L
+    w = words[ptr.clamp(max=words.numel() - 1).long()].long() & _MASK16
+    return torch.where(need, (x << 16) | w, x), ptr + need.to(torch.int32)
+
+
 def rans_decode_phase_plain(words, x, img_ptr, n_lanes: int, n_steps: int,
-                            rows, tables: dict, parametric: bool):
+                            rows, tables: dict, parametric: bool,
+                            layout: str = "global"):
     """Decode S steps over B*n_lanes lanes (the plain version of K4) at
-    ``rows`` int32 [S, B*n_lanes].
+    ``rows`` int32 [S, B*n_lanes].  ``layout`` "global" (formats v3/v4:
+    ``img_ptr`` int32 [B], the word of each image's next reading lane) or
+    "lanes" (format v2: ``img_ptr`` int32 [B*n_lanes], each lane's next
+    word in its own block).
 
     Parametric: each row's constants (m, b, A, C, B, L) by
     ``select_rows_plain`` from ``tables["row_params"]``; ``n_steps``-level
@@ -599,6 +620,8 @@ def rans_decode_phase_plain(words, x, img_ptr, n_lanes: int, n_steps: int,
     S = rows.shape[0]
     BL = x.shape[0]
     dev = x.device
+    renorm = _renorm_lanes_plain if layout == "lanes" else \
+        _renorm_global_plain
     cols = select_rows_plain(rows, tables["row_params"]) if parametric \
         else None
     cdf_rows, max_value, offsets = (None if parametric else tables[k] for k
@@ -646,7 +669,7 @@ def rans_decode_phase_plain(words, x, img_ptr, n_lanes: int, n_steps: int,
             sym[s] = lo + offsets[row]
         esc_out[s] = esc
         x = (freq * (x >> 16) + (x & _MASK16) - start) & _MASK32
-        x, img_ptr = _renorm_global_plain(x, img_ptr, words)
+        x, img_ptr = renorm(x, img_ptr, words)
     return sym, esc_out, x, img_ptr
 
 
@@ -748,29 +771,38 @@ def decode_slot_plain(cf, group: int, n_steps: int, cols_s=None, row=None,
 
 
 def rans_decode_phase(words, x, img_ptr, n_lanes: int, n_steps: int,
-                      rows, tables: dict, parametric: bool):
+                      rows, tables: dict, parametric: bool,
+                      layout: str = "global"):
     """K4 for CUDA tensors, the plain version for CPU tensors, at ``rows``
     int32 [S, B*n_lanes]: parametric (the rows' Gaussian constants
     selected from ``tables["row_params"]``, staged in each block's shared
-    memory) or by the integer rows of ``tables["cdf_rows"]``.  A group of
+    memory) or by the integer rows of ``tables["cdf_rows"]``; in the
+    ``layout`` "global" (formats v3/v4, ``img_ptr`` int32 [B]) or "lanes"
+    (format v2, a pointer a lane: ``img_ptr`` int32 [B*n_lanes]).  A group of
     threads per lane searches the CDF T-ways (``decode_group``), and an
     image's lanes span a cluster of ``decode_blocks_per_image(n_lanes)``
     blocks; returns new carry tensors (the inputs are not modified).
     ``n_lanes`` is below 32 or a multiple of 32 up to 1024: the kernel's
     warp ballot names every lane of a full warp."""
     decode_blocks_per_image(n_lanes)          # raises for what K4 refuses
+    if layout not in ("global", "lanes"):
+        raise ValueError(f"rans_decode_phase: layout {layout!r} is neither "
+                         "'global' nor 'lanes'")
     if words.device.type == "cpu":
         return rans_decode_phase_plain(words, x, img_ptr, n_lanes, n_steps,
-                                       rows, tables, parametric)
+                                       rows, tables, parametric, layout)
     dev = words.device
     if dev.type != "cuda":
         raise ValueError("rans_decode_phase: inputs must be on a CUDA device")
-    B = img_ptr.shape[0]
     BL = x.shape[0]
-    if BL != B * n_lanes or x.dtype != torch.int64 \
-            or img_ptr.dtype != torch.int32 or words.dtype != torch.int16:
+    B = BL // n_lanes if layout == "lanes" else img_ptr.shape[0]
+    n_ptr = BL if layout == "lanes" else B
+    if BL != B * n_lanes or img_ptr.shape != (n_ptr,) \
+            or x.dtype != torch.int64 or img_ptr.dtype != torch.int32 \
+            or words.dtype != torch.int16:
         raise TypeError("rans_decode_phase: carry must be x int64 [B*n_lanes]"
-                        ", img_ptr int32 [B]; words int16")
+                        ", img_ptr int32 [B] (global) or [B*n_lanes] (lanes);"
+                        " words int16")
     if rows.dtype != torch.int32 or rows.dim() != 2 or rows.shape[1] != BL:
         raise ValueError("rans_decode_phase: rows must be int32 [S, BL]")
     S = rows.shape[0]
@@ -801,28 +833,39 @@ def rans_decode_phase(words, x, img_ptr, n_lanes: int, n_steps: int,
     DECODE_KERNEL.launch(words.data_ptr(), words.numel(), x.data_ptr(),
                          img_ptr.data_ptr(), x_out.data_ptr(),
                          ptr_out.data_ptr(), sym.data_ptr(), esc.data_ptr(),
-                         S, B, n_lanes, int(not parametric), rows.data_ptr(),
-                         n_steps, *tab_args, stream_handle(words))
+                         S, B, n_lanes, int(not parametric),
+                         int(layout == "lanes"), rows.data_ptr(), n_steps,
+                         *tab_args, stream_handle(words))
     return sym, esc, x_out, ptr_out
 
 
 def make_decoder(words: torch.Tensor, n_steps: int, esc_values: torch.Tensor,
-                 esc_begin: torch.Tensor, n_lanes: int):
-    """Bind a format-v3/v4 word buffer (device_rans.py:169, fmt="global").
+                 esc_begin: torch.Tensor, n_lanes: int, fmt: str = "global"):
+    """Bind a word buffer (device_rans.py:169).
 
     ``words``: int16 (uint16 bits) [W], all images' blocks concatenated;
     ``esc_values`` int32 (all images' escape values), ``esc_begin`` int32
-    [B] per-image offsets into it.  Returns (init, decode):
-    ``init(img_begin) -> carry``; ``decode(carry, rows, tables,
-    n_steps_row=None) -> (carry, symbols [S*B*n_lanes])`` in position
-    order, escapes patched in from the side channel.  Without
-    ``n_steps_row`` the phase decodes parametrically (``n_steps`` levels),
-    with it by bisection over ``tables["cdf_rows"][rows]``."""
+    [B] per-image offsets into it.  ``fmt`` "global" (formats v3/v4: an
+    image's block is its 2*n_lanes state words, then the renorm words in
+    consumption order) or "lanes" (format v2: a block a lane).  Returns
+    (init, decode): ``init(img_begin)`` (global: int32 [B] block offsets)
+    or ``init(lane_begin)`` (lanes: int32 [B*n_lanes]) -> carry;
+    ``decode(carry, rows, tables, n_steps_row=None) -> (carry, symbols
+    [S*B*n_lanes])`` in position order, escapes patched in from the side
+    channel.  Without ``n_steps_row`` the phase decodes parametrically
+    (``n_steps`` levels), with it by bisection over
+    ``tables["cdf_rows"][rows]``.  Both layouts decode on K4."""
+    if fmt not in ("global", "lanes"):
+        raise ValueError(f"make_decoder: fmt {fmt!r} is neither 'global' "
+                         "nor 'lanes'")
     if esc_values.numel() == 0:
         esc_values = torch.zeros(1, dtype=torch.int32, device=words.device)
 
-    def init(img_begin):
-        x, ptr = rans_init_global(words, img_begin, n_lanes)
+    def init(begin):
+        if fmt == "lanes":
+            x, ptr = rans_init(words, begin)
+        else:
+            x, ptr = rans_init_global(words, begin, n_lanes)
         return x, ptr, torch.zeros_like(esc_begin)
 
     def decode(carry, rows, tables, n_steps_row=None):
@@ -830,7 +873,7 @@ def make_decoder(words: torch.Tensor, n_steps: int, esc_values: torch.Tensor,
         parametric = n_steps_row is None
         sym, esc, x, ptr = rans_decode_phase(
             words, x, ptr, n_lanes, n_steps if parametric else n_steps_row,
-            rows, tables, parametric)
+            rows, tables, parametric, fmt)
         out, esc_count = patch_escapes(sym, esc, esc_count, esc_values,
                                        esc_begin, n_lanes)
         return (x, ptr, esc_count), out
@@ -853,3 +896,115 @@ def patch_escapes(sym, esc, esc_count, esc_values, esc_begin, n_lanes: int):
     sym_i = torch.where(esc_i, vals, sym_i)
     new_count = esc_count + esc_i.sum(1, dtype=torch.int32)
     return sym_i.reshape(B, S, n_lanes).permute(1, 0, 2).reshape(-1), new_count
+
+
+# --------------------------------------------------------------------------
+# Format v2: per-lane word blocks
+# --------------------------------------------------------------------------
+def _lane_sections(a: torch.Tensor, nl: int) -> torch.Tensor:
+    """[S, L] position order -> [L // nl, S * nl], the section layout K3
+    reads with one phase and no z (``phase_order``'s inverse)."""
+    S, L = a.shape
+    return a.reshape(S, L // nl, nl).permute(1, 0, 2).reshape(
+        L // nl, S * nl).contiguous()
+
+
+def encode_lanes(sym: torch.Tensor, row: torch.Tensor, tables: dict,
+                 analytic_rows: int = 0):
+    """Lockstep rans16 encode of [S, L] position-ordered symbols
+    (device_rans.py:482), by K7 and K3 on the card.
+
+    ``sym`` and ``row`` int32 [S, L]; with ``analytic_rows`` the rows (all
+    below it) take the analytic Gaussian CDF of ``tables["row_params"]``,
+    else every entry is gathered from ``tables["cdf_rows"]``.  The JAX
+    function's ``analytic_split`` (a leading gathered z section) has no
+    counterpart: the port codes v4's z section in K7's own z mode
+    (``codec.encode_rans_v4``).  K7 reads the [S, L] arrays as S rows of L
+    entries (its y section, element by element); K3 reads them as one
+    phase of ``L // nl`` images of ``nl`` lanes, nl the largest power of
+    two up to 1024 that divides L (lanes are independent; the split only
+    fits K3's geometry).  Returns (x int64 [L] final states, words int16
+    [S, L], emits bool [S, L], esc bool [S, L])."""
+    S, L = sym.shape
+    sym, row = sym.to(torch.int32).contiguous(), row.to(torch.int32) \
+        .contiguous()
+    _, (start, freqm1, esc) = rans_encode_prep(
+        sym, row, sym.new_empty((S, 0)), tables, y_gather=not analytic_rows)
+    nl = min(L & -L, MAX_ENCODE_LANES)
+    sec = [_lane_sections(t, nl) for t in (start, freqm1)]
+    z = sec[0].new_empty((L // nl, 0))
+    x, words, masks = rans_encode_scan(z, z, sec[0], sec[1], nl, 1)
+    return x, words, masks_to_emits(masks, nl), esc
+
+
+def compact_streams(x, words, emits, esc, sym, n_images: int) -> dict:
+    """Format-v2 compaction (device_rans.py:561): the emitted words of
+    every lane into a block of its own, [state hi, state lo, words in
+    step order], lanes in order; the escape values per image in position
+    order.  Plain PyTorch on the caller's device: a fixed handful of
+    operations with no loop over steps, as in the JAX package (XLA there,
+    not a Pallas kernel).
+
+    Returns buf int16 [S*L + 2L] (uint16 bits), lane_n int32 [L] (words a
+    lane, its two state words included), lane_begin int32 [L], ebuf int32
+    (escape values, image-major) and ecount int32 [n_images]."""
+    S, L = words.shape
+    e = emits.to(torch.int32)
+    prefix = torch.cumsum(e, 0, dtype=torch.int32) - e
+    lane_n = e.sum(0, dtype=torch.int32) + 2
+    lane_begin = torch.cumsum(lane_n, 0, dtype=torch.int32) - lane_n
+    buf = torch.zeros(S * L + 2 * L, dtype=torch.int16, device=words.device)
+    pos = (lane_begin[None, :] + 2 + prefix)[emits]
+    buf[pos.long()] = words[emits]
+    buf[lane_begin.long()] = u16_bits(x >> 16)
+    buf[lane_begin.long() + 1] = u16_bits(x & _MASK16)
+    nl = L // n_images
+
+    def per_image(a):
+        return a.reshape(S, n_images, nl).permute(1, 0, 2).reshape(
+            n_images, -1)
+
+    esc_i = per_image(esc)
+    return {"buf": buf, "lane_n": lane_n, "lane_begin": lane_begin,
+            "ebuf": per_image(sym).to(torch.int32)[esc_i],
+            "ecount": esc_i.sum(1, dtype=torch.int32)}
+
+
+def encode_positions_device(sym_steps, row_steps, tables: dict,
+                            n_images: int, fmt: str = "lanes",
+                            analytic_rows: int = 0):
+    """Encode pre-ordered [S, L] position arrays (device_rans.py:727):
+    ``encode_lanes``, then the v2 compaction (``fmt="lanes"``) or the
+    v3/v4 one (``fmt="global"``, ``compact_streams_global``)."""
+    x, words, emits, esc = encode_lanes(sym_steps, row_steps, tables,
+                                        analytic_rows)
+    if fmt == "lanes":
+        return compact_streams(x, words, emits, esc, sym_steps, n_images)
+    return compact_streams_global(x, words, emits_to_masks(
+        emits, sym_steps.shape[1] // n_images), esc, sym_steps, n_images)
+
+
+def encode_interleaved_device(sym: torch.Tensor, idx: torch.Tensor,
+                              tables: dict, n_lanes: int, n_phases: int,
+                              fmt: str = "lanes", analytic_rows: int = 0):
+    """The device encode of the codec's per-phase symbols
+    (device_rans.py:691): ``sym`` and ``idx`` [B, n_phases * n_per], phases
+    concatenated.  The prep is K7 (analytic rows where ``analytic_rows``,
+    else gathers from ``tables["cdf_rows"]``) and the scan K3, both on the
+    sections in place, with an empty z section; then the v2 compaction
+    (``fmt="lanes"``, on the positions ``encode_layout_plain`` gives) or
+    K6 (``fmt="global"``, format v3).  Returns the compaction's dict."""
+    sym = sym.to(torch.int32).contiguous()
+    idx = idx.to(torch.int32).contiguous()
+    empty = sym.new_empty((sym.shape[0], 0))
+    _, (st, fm, esc) = rans_encode_prep(sym, idx, empty, tables,
+                                        y_gather=not analytic_rows)
+    x, words, masks = rans_encode_scan(empty, empty, st, fm, n_lanes,
+                                       n_phases)
+    if fmt == "global":
+        return rans_encode_compact(x, words, masks, empty.bool(), empty, esc,
+                                   sym, n_lanes, n_phases)
+    return compact_streams(
+        x, words, masks_to_emits(masks, n_lanes),
+        encode_layout_plain(empty.bool(), esc, n_lanes, n_phases, False),
+        encode_layout_plain(empty, sym, n_lanes, n_phases, 0), sym.shape[0])

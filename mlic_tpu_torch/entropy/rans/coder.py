@@ -8,6 +8,12 @@ decodes them back, a phase at a time (``set_stream`` once, then
 ``decode_stream`` per phase), as the reference's ``BufferedRansEncoder`` /
 ``RansDecoder`` (``MLIC++/models/mlicpp.py:215,279-280,306-307``).
 
+``encode_interleaved``, ``parse_interleaved`` and ``decode_interleaved``
+(``coder.py:271-380``) code the interleaved format v2, per-lane word
+blocks, with ``rans.cpp``'s lane coder: the bytes are the JAX host
+coder's, and the device encode's (``device_rans.encode_interleaved_device``)
+equal them.
+
 ``encode_global`` and ``decode_global`` (``coder.py:417-520``) code the
 interleaved format v3 of the device backend on the host, in numpy
 vectorised over the lanes: the tests' and the smoke's oracle of the
@@ -38,7 +44,11 @@ from pathlib import Path
 
 import numpy as np
 
-from mlic_tpu_torch.entropy.stream import _V3_FLAG, parse_global
+from mlic_tpu_torch.entropy.stream import (
+    _V3_FLAG,
+    parse_global,
+    parse_interleaved,
+)
 
 SOURCE = Path(__file__).resolve().with_name("rans.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "host"
@@ -106,6 +116,17 @@ def _native():
             lib.mlic_rans_decode.argtypes = [
                 ctypes.c_void_p, i32p, ctypes.c_int64, i32p, ctypes.c_int64,
                 i32p, i32p, i32p]
+            u16p = ctypes.POINTER(ctypes.c_uint16)
+            i64p = ctypes.POINTER(ctypes.c_int64)
+            i64 = ctypes.c_int64
+            lib.mlic_rans16_encode_interleaved.restype = i64
+            lib.mlic_rans16_encode_interleaved.argtypes = [
+                i32p, i32p, i64, ctypes.c_int32, i32p, i64, i32p, i32p, u16p,
+                i64, i64p, i64p, i32p, i64, i64p]
+            lib.mlic_rans16_decode_interleaved.restype = ctypes.c_int32
+            lib.mlic_rans16_decode_interleaved.argtypes = [
+                u16p, i64, i64p, ctypes.c_int32, i32p, i64, i32p, i64, i32p,
+                i32p, i32p, i64, i32p]
             _lib = lib
     return _lib
 
@@ -345,6 +366,75 @@ def numpy_encode(symbols, indexes, cdfs, cdf_lengths, offsets) -> bytes:
             slot = max_value
         enc.put(int(row[slot]), int(row[slot + 1] - row[slot]))
     return enc.flush()
+
+
+# ---------------------------------------------------------------------------
+# Format v2 on the host: L lockstep rans16 lanes, a word block a lane
+# ---------------------------------------------------------------------------
+def _u16p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16))
+
+
+def _i64p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+def encode_interleaved(symbols, indexes, n_lanes: int, cdfs, cdf_lengths,
+                       offsets) -> bytes:
+    """Format-v2 encode (``coder.py:271``): position p in lane p % n_lanes
+    (any count of symbols, fewer than the lanes included), a value outside
+    its row's support coded as the escape slot with its raw value in the
+    int32 side channel, in position order.  Returns the stream
+    ``parse_interleaved`` reads (layout in ``entropy/stream.py``)."""
+    symbols = _as_i32(symbols).ravel()
+    indexes, cdfs, cdf_lengths, offsets = _tables(indexes, cdfs,
+                                                  cdf_lengths, offsets)
+    if len(symbols) != len(indexes) or n_lanes < 1:
+        raise ValueError("one index a symbol, and at least one lane")
+    lib = _native()
+    n = len(symbols)
+    cap = 8 * max(n, n_lanes) + 4 * n_lanes + 64
+    esc = np.empty(max(n, 16), dtype=np.int32)
+    n_esc = np.zeros(1, dtype=np.int64)
+    begin = np.empty(n_lanes, dtype=np.int64)
+    end = np.empty(n_lanes, dtype=np.int64)
+    while True:
+        words = np.empty(cap, dtype=np.uint16)
+        total = lib.mlic_rans16_encode_interleaved(
+            _i32p(symbols), _i32p(indexes), n, n_lanes, _i32p(cdfs),
+            cdfs.shape[1], _i32p(cdf_lengths), _i32p(offsets), _u16p(words),
+            cap, _i64p(begin), _i64p(end), _i32p(esc), len(esc),
+            _i64p(n_esc))
+        if total >= 0:
+            break
+        cap *= 4
+    e = int(n_esc[0])
+    header = np.asarray([n_lanes, total, e], dtype=np.uint32).tobytes()
+    body = begin.astype(np.uint32).tobytes() + words[:total].tobytes()
+    if len(body) % 4:
+        body += b"\x00\x00"
+    return header + body + esc[:e].tobytes()
+
+
+def decode_interleaved(stream: bytes, indexes, cdfs, cdf_lengths,
+                       offsets) -> np.ndarray:
+    """Format-v2 decode of ``len(indexes)`` symbols on the host
+    (``coder.py:351``): the oracle of the device decode.  Raises for a
+    stream whose words or escapes run out."""
+    words, begin, esc = parse_interleaved(stream)
+    words = np.ascontiguousarray(words)
+    begin = np.ascontiguousarray(begin)
+    esc = np.ascontiguousarray(esc)
+    indexes, cdfs, cdf_lengths, offsets = _tables(indexes, cdfs,
+                                                  cdf_lengths, offsets)
+    out = np.empty(len(indexes), dtype=np.int32)
+    rc = _native().mlic_rans16_decode_interleaved(
+        _u16p(words), len(words), _i64p(begin), len(begin), _i32p(indexes),
+        len(indexes), _i32p(cdfs), cdfs.shape[1], _i32p(cdf_lengths),
+        _i32p(offsets), _i32p(esc), len(esc), _i32p(out))
+    if rc != 0:
+        raise RuntimeError(f"interleaved decode failed: {rc}")
+    return out
 
 
 # ---------------------------------------------------------------------------

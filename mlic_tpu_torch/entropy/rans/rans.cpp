@@ -207,3 +207,127 @@ int32_t mlic_rans_decode(void* dec_ptr, const int32_t* indexes, int64_t n,
 }
 
 }  // extern "C"
+
+// --------------------------------------------------------------------------
+// Interleaved rans16, format v2 (per-lane word blocks): the port's copy of
+// mlic_tpu/entropy/rans/rans.cpp:255-376.  32-bit state, 16-bit renorm
+// words, 16-bit probabilities; a value outside its row's support advances
+// its lane with the escape slot (slot = max_value) and carries no bypass
+// digits: its raw int32 value goes to esc_values, in position order.
+// --------------------------------------------------------------------------
+namespace {
+
+constexpr uint32_t kRans16L = 1u << 16;
+
+struct Encoder16 {
+  uint32_t x = kRans16L;
+  std::vector<uint16_t> words;  // reverse stream order
+
+  inline void put(uint32_t start, uint32_t freq) {
+    const uint32_t x_max = freq << 16;
+    while (x >= x_max) {
+      words.push_back(static_cast<uint16_t>(x));
+      x >>= 16;
+    }
+    x = ((x / freq) << kProbBits) + (x % freq) + start;
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+// Encode n symbols, position p in lane p % n_lanes, into n_lanes lane
+// blocks; lane l occupies out_words[lane_begin[l], lane_end[l]) in decode
+// order: [state hi, state lo, renorm words].  A lane with no symbols still
+// writes its initial state.  Returns the words written, -1 if cap is too
+// small, -2 if esc_cap is.
+int64_t mlic_rans16_encode_interleaved(
+    const int32_t* symbols, const int32_t* indexes, int64_t n, int32_t n_lanes,
+    const int32_t* cdfs, int64_t cdf_stride, const int32_t* cdf_lengths,
+    const int32_t* offsets, uint16_t* out_words, int64_t cap,
+    int64_t* lane_begin, int64_t* lane_end, int32_t* esc_values,
+    int64_t esc_cap, int64_t* esc_count) {
+  int64_t e = 0;
+  for (int64_t p = 0; p < n; ++p) {
+    const int32_t i = indexes[p];
+    const int32_t max_value = cdf_lengths[i] - 2;
+    const int64_t value = static_cast<int64_t>(symbols[p]) - offsets[i];
+    if (value < 0 || value >= max_value) {
+      if (e >= esc_cap) return -2;
+      esc_values[e++] = symbols[p];
+    }
+  }
+  *esc_count = e;
+
+  int64_t w = 0;
+  for (int32_t lane = 0; lane < n_lanes; ++lane) {
+    Encoder16 enc;
+    // positions lane, lane + L, ..., encoded last to first
+    const int64_t last =
+        lane < n ? lane + ((n - 1 - lane) / n_lanes) * n_lanes : -1;
+    for (int64_t p = last; p >= lane && p >= 0; p -= n_lanes) {
+      const int32_t i = indexes[p];
+      const int32_t* cdf = cdfs + static_cast<int64_t>(i) * cdf_stride;
+      const int32_t max_value = cdf_lengths[i] - 2;
+      const int64_t value = static_cast<int64_t>(symbols[p]) - offsets[i];
+      const int32_t slot = (value >= 0 && value < max_value)
+                               ? static_cast<int32_t>(value)
+                               : max_value;
+      enc.put(static_cast<uint32_t>(cdf[slot]),
+              static_cast<uint32_t>(cdf[slot + 1] - cdf[slot]));
+    }
+    const int64_t lane_words = 2 + static_cast<int64_t>(enc.words.size());
+    if (w + lane_words > cap) return -1;
+    lane_begin[lane] = w;
+    out_words[w++] = static_cast<uint16_t>(enc.x >> 16);
+    out_words[w++] = static_cast<uint16_t>(enc.x);
+    for (size_t j = enc.words.size(); j-- > 0;) out_words[w++] = enc.words[j];
+    lane_end[lane] = w;
+  }
+  return w;
+}
+
+// Decode n symbols of a format-v2 stream (the host's oracle of the device
+// decode).  Returns 0, or -3 if the escapes run out, -4 if a lane reads
+// past the words.
+int32_t mlic_rans16_decode_interleaved(
+    const uint16_t* words, int64_t n_words, const int64_t* lane_begin,
+    int32_t n_lanes, const int32_t* indexes, int64_t n, const int32_t* cdfs,
+    int64_t cdf_stride, const int32_t* cdf_lengths, const int32_t* offsets,
+    const int32_t* esc_values, int64_t esc_count, int32_t* out_symbols) {
+  std::vector<uint32_t> x(n_lanes);
+  std::vector<int64_t> ptr(n_lanes);
+  for (int32_t l = 0; l < n_lanes; ++l) {
+    const int64_t b = lane_begin[l];
+    if (b < 0 || b + 1 >= n_words) return -4;
+    x[l] = (static_cast<uint32_t>(words[b]) << 16) | words[b + 1];
+    ptr[l] = b + 2;
+  }
+  int64_t e = 0;
+  for (int64_t p = 0; p < n; ++p) {
+    const int32_t l = static_cast<int32_t>(p % n_lanes);
+    const int32_t i = indexes[p];
+    const int32_t* cdf = cdfs + static_cast<int64_t>(i) * cdf_stride;
+    const int32_t len = cdf_lengths[i];
+    const int32_t max_value = len - 2;
+    const uint32_t cf = x[l] & 0xFFFF;
+    const int32_t slot = find_symbol(cdf, len - 1, cf);
+    x[l] = static_cast<uint32_t>(cdf[slot + 1] - cdf[slot]) *
+               (x[l] >> kProbBits) +
+           cf - static_cast<uint32_t>(cdf[slot]);
+    if (x[l] < kRans16L) {
+      if (ptr[l] >= n_words) return -4;
+      x[l] = (x[l] << 16) | words[ptr[l]++];
+    }
+    if (slot == max_value) {
+      if (e >= esc_count) return -3;
+      out_symbols[p] = esc_values[e++];
+    } else {
+      out_symbols[p] = slot + offsets[i];
+    }
+  }
+  return 0;
+}
+
+}  // extern "C"

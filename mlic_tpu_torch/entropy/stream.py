@@ -134,3 +134,91 @@ def pack_streams(img_n, ecount, buf: np.ndarray, ebuf: np.ndarray,
             body += b"\x00\x00"
         streams.append(header + body + ebuf[eb[b]:eb[b + 1]].tobytes())
     return streams
+
+
+# --------------------------------------------------------------------------
+# Format v2: per-lane word blocks (coder.py:271-316)
+#
+# Byte layout, little-endian: uint32 n_lanes | uint32 n_words | uint32
+# n_escapes | uint32 lane_begin[n_lanes] | uint16 words[n_words] | pad to
+# 4 B | int32 esc_values[n_escapes].  Lane l's words are [lane_begin[l],
+# next lane's begin): its state [hi, lo], then its renorm words in decode
+# order.  No flag bit: bit 31 of n_lanes is clear.
+# --------------------------------------------------------------------------
+def parse_interleaved(stream: bytes):
+    """-> (words uint16 [n_words], lane_begin int64 [n_lanes], esc_values
+    int32 [n_escapes])."""
+    head = np.frombuffer(stream[:12], dtype=np.uint32)
+    if len(head) < 3 or head[0] & _V3_FLAG:
+        raise ValueError("not a format-v2 stream")
+    n_lanes, n_words, n_esc = int(head[0]), int(head[1]), int(head[2])
+    off = 12 + 4 * n_lanes
+    begin = np.frombuffer(stream[12:off], dtype=np.uint32).astype(np.int64)
+    words = np.frombuffer(stream[off:off + 2 * n_words], dtype=np.uint16)
+    off += 2 * n_words
+    if off % 4:
+        off += 2
+    esc = np.frombuffer(stream[off:off + 4 * n_esc], dtype=np.int32)
+    if len(begin) != n_lanes or len(words) != n_words or len(esc) != n_esc:
+        raise ValueError("truncated stream")
+    return words, begin, esc
+
+
+def pack_lane_streams(lane_begin, lane_n, ecount, buf: np.ndarray,
+                      ebuf: np.ndarray, n_lanes: int) -> list:
+    """Per-image format-v2 streams from host arrays: every lane's begin and
+    word count (lanes image after image), each image's escape count, all
+    lanes' words (uint16) and all images' escapes (int32)."""
+    lane_begin = np.asarray(lane_begin, np.int64)
+    lane_n = np.asarray(lane_n, np.int64)
+    eb = np.concatenate([[0], np.cumsum(ecount)]).astype(np.int64)
+    ebuf = np.asarray(ebuf, np.int32)
+    streams = []
+    for b in range(len(ecount)):
+        lo, hi = b * n_lanes, (b + 1) * n_lanes
+        w0 = int(lane_begin[lo])
+        w1 = int(lane_begin[hi - 1] + lane_n[hi - 1])
+        header = np.asarray([n_lanes, w1 - w0, int(ecount[b])],
+                            np.uint32).tobytes()
+        body = (lane_begin[lo:hi] - w0).astype(np.uint32).tobytes() \
+            + buf[w0:w1].tobytes()
+        if len(body) % 4:
+            body += b"\x00\x00"
+        streams.append(header + body + ebuf[eb[b]:eb[b + 1]].tobytes())
+    return streams
+
+
+def assemble_lane_streams(comp: dict, n_lanes: int) -> list:
+    """Per-image format-v2 streams from the device arrays of
+    ``device_rans.compact_streams`` (as ``Codec``'s download does for v4:
+    the counts, then the used prefixes)."""
+    lane_begin = comp["lane_begin"].cpu().numpy()
+    lane_n = comp["lane_n"].cpu().numpy()
+    ecount = comp["ecount"].cpu().numpy()
+    n_w = int(lane_begin[-1] + lane_n[-1])
+    buf = comp["buf"][:n_w].cpu().numpy().view(np.uint16)
+    ebuf = comp["ebuf"][:int(ecount.sum())].cpu().numpy()
+    return pack_lane_streams(lane_begin, lane_n, ecount, buf, ebuf, n_lanes)
+
+
+def lane_decode_inputs(streams, device) -> dict:
+    """Format-v2 streams -> the decoder's device inputs: all words, each
+    lane's begin offset into them, the escapes and each image's first."""
+    words, begins, escs, esc_begin = [], [], [], []
+    n_w = n_e = 0
+    for s in streams:
+        w, b, e = parse_interleaved(s)
+        words.append(w)
+        begins.append(b + n_w)
+        escs.append(e)
+        esc_begin.append(n_e)
+        n_w, n_e = n_w + len(w), n_e + len(e)
+
+    def dev(a, dt):
+        return torch.as_tensor(np.asarray(a, dt)).to(device)
+
+    return {"words": dev(np.concatenate(words).view(np.int16), np.int16),
+            "lane_begin": dev(np.concatenate(begins), np.int32),
+            "esc": dev(np.concatenate(escs) if n_e else np.zeros(1),
+                       np.int32),
+            "esc_begin": dev(esc_begin, np.int32)}

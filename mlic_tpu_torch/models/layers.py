@@ -283,3 +283,51 @@ class MLP(nn.Module):
 
     def forward(self, x):
         return self.fc2(gelu(self.fc1(x)))
+
+
+class ResidualBottleneck(nn.Module):
+    """1x1 down - act - dense 3x3 - act - 1x1 up + skip (layers.py:320);
+    the width must be even.  Unused by the MLIC++ transforms, kept for
+    parity with the JAX package."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        n = features
+        self.reduce = conv1x1(n, n // 2)
+        self.conv = Conv2d(n // 2, n // 2, 3)
+        self.expand = conv1x1(n // 2, n)
+
+    def forward(self, x):
+        out = gelu(self.conv(gelu(self.reduce(x))))
+        return x + self.expand(out)
+
+
+class AttentionBlock(nn.Module):
+    """Cheng'20 sigmoid-gated dual-branch attention (layers.py:337): two
+    branches of three residual units (1x1 down, GELU, ``Conv3x3``, GELU,
+    1x1 up, GELU of the sum), the second projected by ``b_proj`` and gating
+    the first.  Unused by the MLIC++ transforms."""
+
+    def __init__(self, features: int, depthwise: bool = True):
+        super().__init__()
+        n = features
+        for br in ("a", "b"):
+            for i in range(3):
+                name = f"{br}{i}"
+                self.add_module(f"{name}_in", conv1x1(n, n // 2))
+                self.add_module(f"{name}_mid",
+                                Conv3x3(n // 2, n // 2, 1, depthwise))
+                self.add_module(f"{name}_out", conv1x1(n // 2, n))
+        self.b_proj = conv1x1(n, n)
+
+    def _unit(self, h, name):
+        out = gelu(getattr(self, f"{name}_in")(h))
+        out = gelu(getattr(self, f"{name}_mid")(out))
+        return gelu(h + getattr(self, f"{name}_out")(out))
+
+    def forward(self, x):
+        a = b = x
+        for i in range(3):
+            a = self._unit(a, f"a{i}")
+            b = self._unit(b, f"b{i}")
+        return x + a * torch.sigmoid(self.b_proj(b))

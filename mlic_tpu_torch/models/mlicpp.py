@@ -331,6 +331,24 @@ class MLICPlusPlus(nn.Module):
         """g_s on an NHWC latent -> NHWC image."""
         return to_nhwc(self.g_s(to_nchw(y_hat)))
 
+    # --------------------- decode-complexity proxy ---------------------
+    def net_decoder_forward(self, x):
+        """The decoder alone, for counting its operations (mlicpp.py:682;
+        reference ``mlicpp.py:380-459``): h_s of a zero z_hat of [b, N,
+        h/64, w/64] for an image x [b, h, w, 3], then the slice loop with
+        each phase's means taken as its values (no rounding, no coding),
+        then g_s.  Returns the NHWC image."""
+        b, h, w, _ = x.shape
+        z_hat = torch.zeros((b, self.cfg.N, h // 64, w // 64),
+                            device=x.device)
+
+        def phase(idx, squeeze, unsqueeze, scales, means):
+            mask = (ckbd_anchor if squeeze is ckbd_anchor_squeeze
+                    else ckbd_nonanchor)
+            return mask(means)
+
+        return to_nhwc(self.g_s(self._slices(self.h_s(z_hat), phase)))
+
     # ------------------------- real coding -----------------------------
     def _phase_quantities(self, squeeze, y_slice, scales, means, scale):
         """One coding phase's squeezed (means, scales), scale indexes

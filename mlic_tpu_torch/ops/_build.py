@@ -9,7 +9,11 @@ loaded when this module is imported.
 
 Every kernel's C entry point launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()``; ``Kernel.launch`` raises if
-that is not 0 and counts the launch.
+that is not 0 and counts the launch.  Each kernel also counts its own
+launches on the device (``csrc/launch_count.cuh``: thread 0 of block 0 adds
+one), which ``device_launch_counts()`` reads: a launch that the host
+issued and the device never ran shows as a difference between the two
+counts, with no profiler involved.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ class Kernel:
         self.argtypes = argtypes
         self.launches = 0
         self._fn = None
+        self._device_count = None
 
     def library_path(self) -> Path:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -79,6 +84,23 @@ class Kernel:
                                f"(cudaError {rc})")
         self.launches += 1
 
+    def device_launches(self) -> int:
+        """The launches of this kernel that ran on the device since its
+        library was loaded: the library's count in device memory
+        (``<name>_device_launches``), read with a blocking copy, so call it
+        after a synchronize.  0 for a library this process never loaded."""
+        if self._fn is None:
+            return 0
+        if self._device_count is None:
+            self._device_count = self.function(
+                f"{self.name}_device_launches", [_P])
+        out = ctypes.c_ulonglong(0)
+        rc = self._device_count(ctypes.byref(out))
+        if rc != 0:
+            raise RuntimeError(f"reading {self.name}'s device launch count "
+                               f"failed (cudaError {rc})")
+        return out.value
+
 
 KERNELS = {k.name: k for k in (
     # rows, table, out, n, n_rows, n_cols, stream
@@ -103,10 +125,11 @@ KERNELS = {k.name: k for k in (
     Kernel("rans_encode_compact", "rans_compact.cu", "rans_compact_launch",
            [_P] * 13 + [_I] * 7 + [_P]),
     # words, n_words, x_in, ptr_in, x_out, ptr_out, sym, esc, S, n_images,
-    # n_lanes, mode (0 parametric, 1 integer rows), rows, n_steps,
-    # row_params, n_param_rows, cdf_rows, width, max_value, offsets, stream
+    # n_lanes, mode (0 parametric, 1 integer rows), layout (0 global, 1
+    # lanes), rows, n_steps, row_params, n_param_rows, cdf_rows, width,
+    # max_value, offsets, stream
     Kernel("rans_decode_phase", "rans_decode.cu", "rans_decode_launch",
-           [_P, _LL] + [_P] * 6 + [_I] * 4 + [_P, _I, _P, _I, _P, _I, _P,
+           [_P, _LL] + [_P] * 6 + [_I] * 5 + [_P, _I, _P, _I, _P, _I, _P,
                                               _P, _P]),
     # mid, skip, out, dw, bdw, pw, bpw, gamma, beta, B, C, N, H, W, act,
     # is_bf16, stream
@@ -155,6 +178,13 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def device_launch_counts() -> dict:
+    """{kernel: launches that ran on the device since its library was
+    loaded}; call after a synchronize, and compare differences of two
+    readings with the host's (``launch_counts`` may have been reset)."""
+    return {name: k.device_launches() for name, k in KERNELS.items()}
 
 
 def stream_handle(t) -> int:

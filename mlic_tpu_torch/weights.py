@@ -83,6 +83,20 @@ def vgg_from_flax(params) -> dict:
     return sd
 
 
+def metric_from_flax(params, model: nn.Module) -> dict:
+    """The flax ``LPIPSVgg`` or ``DISTS`` parameters (``vgg`` with its
+    thirteen convolutions, and ``lin0``-``lin4`` [C, 1] or ``alpha`` and
+    ``beta``) -> the state_dict of the port's ``model`` of the same
+    metric; raises where the tree's leaves are not exactly the model's."""
+    sd = from_flax(params)
+    want = set(model.state_dict())
+    if set(sd) != want:
+        raise ValueError(f"not a {type(model).__name__} tree: missing "
+                         f"{sorted(want - set(sd))}, unexpected "
+                         f"{sorted(set(sd) - want)}")
+    return sd
+
+
 def flax_path(name: str, ndim: int) -> tuple:
     """A state_dict name and its tensor's rank -> the flax path: ``weight``
     is a LayerNorm ``scale`` when 1-D, else a ``kernel``."""
@@ -132,7 +146,7 @@ def load_checkpoint(path: str) -> dict:
     return {k: v.float() for k, v in obj.items()}
 
 
-def _lecun_normal(shape, generator) -> torch.Tensor:
+def lecun_normal(shape, generator) -> torch.Tensor:
     """flax ``lecun_normal``: truncated (+-2) normal, std sqrt(1/fan_in)
     corrected for the truncation; fan_in over (in, kh, kw) of OIHW or in of
     a Dense [out, in]."""
@@ -165,7 +179,7 @@ def init_params(model: MLICPlusPlus, generator: torch.Generator) -> dict:
             elif pname == "Gain":
                 v = torch.tensor(model.cfg.gain_init, dtype=torch.float32)
             elif pname == "weight":
-                v = _lecun_normal(shape, generator)
+                v = lecun_normal(shape, generator)
             else:
                 v = torch.zeros(shape)
             out[f"{mod_name}.{pname}" if mod_name else pname] = v

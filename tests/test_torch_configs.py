@@ -2,9 +2,12 @@
 
 ``to_flax(init_params(model))`` of each named configuration has exactly
 the leaves and shapes of the flax ``init`` tree, taken by
-``jax.eval_shape`` (no full-width initialisation in JAX), and the port
-builds each with the old synthesis head and with dense convolutions.
+``jax.eval_shape`` (no full-width initialisation in JAX), ``tools.macs``
+counts its parameters, and the port builds each with the old synthesis
+head and with dense convolutions.
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +17,7 @@ import torch
 from mlic_tpu.models.config import CONFIGS
 from mlic_tpu.models.registry import get_model as jax_get_model
 from mlic_tpu_torch.models.registry import get_model
+from mlic_tpu_torch.tools.macs import param_count
 from mlic_tpu_torch.weights import init_params, to_flax
 
 
@@ -51,5 +55,7 @@ def test_every_config_has_the_flax_tree(name):
     got = dict(_leaves(to_flax(init_params(port,
                                            torch.Generator().manual_seed(0)))))
     assert got == dict(_leaves(shapes))
+    # tools.macs counts the flax tree's parameters
+    assert param_count(name) == sum(math.prod(s) for s in got.values())
     for overrides in ({"old_synthesis": True}, {"depthwise": False}):
         assert get_model(name, **overrides).state_dict()

@@ -314,9 +314,11 @@ def test_kary_search_on_tiny_codec_payload(monkeypatch):
     bisect = dr.rans_decode_phase
     phases = []
 
-    def both(words, x, img_ptr, n_lanes, n_steps, rows, tables, parametric):
+    def both(words, x, img_ptr, n_lanes, n_steps, rows, tables, parametric,
+             layout):
+        assert layout == "global"           # format v4
         ref = bisect(words, x, img_ptr, n_lanes, n_steps, rows, tables,
-                     parametric)
+                     parametric, layout)
         cols = select_rows_plain(rows, tables["row_params"]) if parametric \
             else None
         for group in (2, 4, 8):

@@ -15,6 +15,7 @@ forward with both options on, and two MGDA steps.
 """
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -413,9 +414,39 @@ def test_frank_wolfe_matches_jax(n, seed):
     assert abs(float(got.sum()) - 1.0) < 1e-5 and (got >= 0).all()
 
 
-@pytest.mark.parametrize("gradnorm,train_gain,optimizer",
-                         [("none", False, "adamw"), ("loss", True, "sgd")])
-def test_vbr_train_step_matches_jax(fwd, gradnorm, train_gain, optimizer):
+MGDA_CASES = [("none", False, "adamw"), ("loss", True, "sgd")]
+MGDA_LR = 1e-3
+
+
+@pytest.fixture(scope="module")
+def mgda_steps(fwd):
+    """Each case's JAX MGDA step on the port's weights, lowered one after
+    the other and compiled in two threads (XLA's compile releases the
+    GIL): the module's two longest compiles overlap.  {case: (compiled
+    step, its arguments)}."""
+    def lower(case):
+        gradnorm, train_gain, optimizer = case
+        params = to_flax(_port(train_gain=train_gain).state_dict())
+        tx = jopt.make_optimizer(MGDA_LR, 1e-3, 1.0, optimizer)
+        state = jtrainer.TrainState(
+            step=jnp.zeros((), jnp.int32), params=params,
+            opt_state=tx.init(params), rng=jax.random.key(SEED))
+        step = jvbr.make_vbr_train_step(_jax_model(train_gain=train_gain),
+                                        tx, jtrainer.TrainConfig(), gradnorm)
+        args = (state, fwd["x"])
+        return step.lower(*args), args
+
+    lowered = [lower(case) for case in MGDA_CASES]
+    with ThreadPoolExecutor(len(lowered)) as pool:
+        compiled = list(pool.map(lambda la: la[0].compile(FAST_COMPILE),
+                                 lowered))
+    return {case: (prog, la[1])
+            for case, prog, la in zip(MGDA_CASES, compiled, lowered)}
+
+
+@pytest.mark.parametrize("gradnorm,train_gain,optimizer", MGDA_CASES)
+def test_vbr_train_step_matches_jax(fwd, mgda_steps, gradnorm, train_gain,
+                                    optimizer):
     """One MGDA step against ``mlic_tpu.train.vbr.make_vbr_train_step`` on
     the same weights, batch and noise: per-level losses and bpp, alpha,
     and every parameter after the update.  Without ``train_gain`` Gain's
@@ -425,19 +456,11 @@ def test_vbr_train_step_matches_jax(fwd, gradnorm, train_gain, optimizer):
     where |g| is within a hundred eps (1e-6), the last bits of g, in which
     the frameworks differ, move it visibly, so there the two may move apart
     by up to twice the rate; every other element is held at 1e-5."""
-    lr = 1e-3
+    lr = MGDA_LR
     model = _port(train_gain=train_gain)
-    params = to_flax(model.state_dict())
     gain0 = model.Gain.detach().clone()
-    jmodel = _jax_model(train_gain=train_gain)
-    tx = jopt.make_optimizer(lr, 1e-3, 1.0, optimizer)
-    state = jtrainer.TrainState(step=jnp.zeros((), jnp.int32), params=params,
-                                opt_state=tx.init(params),
-                                rng=jax.random.key(SEED))
-    step = jvbr.make_vbr_train_step(jmodel, tx, jtrainer.TrainConfig(),
-                                    gradnorm)
-    args = (state, fwd["x"])
-    new, want = step.lower(*args).compile(FAST_COMPILE)(*args)
+    prog, args = mgda_steps[(gradnorm, train_gain, optimizer)]
+    new, want = prog(*args)
 
     cfg = TrainConfig(learning_rate=lr, optimizer=optimizer)
     st = create_train_state(model, cfg, "cpu")
