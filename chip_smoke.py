@@ -5,7 +5,7 @@
     python3 chip_smoke.py --cards 4    # path 11 across the 4 cards of a host
 
 1. prints the card (``nvidia-smi`` name and power limit);
-2. builds the seven CUDA kernels from ``mlic_tpu_torch/csrc`` (one nvcc per
+2. builds the eight CUDA kernels from ``mlic_tpu_torch/csrc`` (one nvcc per
    source, in parallel);
 3. reads the repository's trained MLICPP_S from its orbax directory
    ``ckpts/bench_default`` without orbax (``utils.checkpoint.read_orbax``:
@@ -20,15 +20,39 @@
    bit-identical to the encoder's, that K1-K4, K6 and K7 were launched on
    that path, and that each request launched what the configuration gives
    (``request_launches``: K7, K3 and K6 once, K4 1 + 2 * slice_num times,
-   K1 and K2 none -- they run only in ``update`` -- and K5 none, its
-   switch off); bpp and escape share per request;
-5. times more requests whole and, alternately, by the stages that
+   K8 7 * slice_num - 6 times a direction and twice more in g_a, K1 and K2
+   none -- they run only in ``update`` -- and K5 none, its switch off);
+   bpp and escape share per request; then one request of the North star's
+   batch, 128 distinct frames (``tools.batch_contract.contract_frames``:
+   the pool's 16, flipped and rolled), the same way;
+5. path 13, batch invariance (the ``batch_128_request``,
+   ``batch_contract``, ``k8_cases`` and ``batch_contracts`` lines): the
+   batch of 128 timed whole, profiled (device busy ms, idle share, kernel
+   launches) with its peak memory and K8's device-side launch count equal
+   to the host's; the JAX package's batch contract
+   (``tools.batch_contract.check``) on it -- each of the 128 frames
+   compressed alone gives the batch's y and z strings byte for byte, every
+   hooked entropy-path module (h_s, chctx, ginter, gintra, local, ep, lrp)
+   the batch's entries bit for bit, its own entries too on the images at
+   0, 18, ..., 108, 127 (and every weighted layer of g_a and h_a its own),
+   whose containers decode alone to the batch's y_hat -- and the same for
+   MLICPP_L at batch 32 (path 6) and the small
+   decoder at batch 8 (path 7); K8 (``ops/invariant_matmul``) against its
+   plain version (the PyTorch op an image at a time) at every product
+   shape of one compress and decompress of S, L and the small decoder, at
+   batches 1, 8 and 128: within 2 gamma_K (|A|.|B| + |bias|) elementwise
+   (K8_BF16_TOL more for bf16 operands), image i's rows at every batch
+   bit-equal to K8 on image i alone, the calls a direction what the
+   configuration gives; timed at batch 128 on S (ms, queued, the one
+   batched PyTorch call, the per-image loop, the bound), summed a
+   direction into the kernels line's K8 row;
+6. times more requests whole and, alternately, by the stages that
    ``Codec.compress``/``decompress`` record (median, min, max of each),
    and profiles one more compress and decompress (device busy time, idle
    share against the median whole time, top ops and the port's kernels by
    device time); then one request of the earlier runs' payload -- seeded
    random weights, noise frames -- with its own profile;
-6. path 2, the file-based evaluation path: the trained model under the
+7. path 2, the file-based evaluation path: the trained model under the
    ``bfloat16_mixed`` policy with ``MLIC_FUSED_BLOCKS=1`` and the
    reference's automatic lane count (``Codec(n_lanes="auto")``) through
    ``mlic_tpu_torch.eval.evaluate_codec`` into a temporary directory --
@@ -40,9 +64,9 @@
    g_s an image (``k5_per_image``, from the configuration by the JAX
    package's rule: 20 for MLICPP_S) and launches of every
    other kernel;
-7. g_a and g_s at the serving size with the fused tail off and on, under
+8. g_a and g_s at the serving size with the fused tail off and on, under
    ``float32`` and ``bfloat16_mixed``: difference and median times;
-8. holds every kernel against its plain PyTorch version on the card:
+9. holds every kernel against its plain PyTorch version on the card:
    K1-K4, K6 and K7 on a payload with the codec's shapes and 3% escapes
    (exact equality; K3, K6 and K7 also at 16, 1024 and 1 lanes, on a
    ragged geometry and at batch 128, their streams byte-identical to the
@@ -62,22 +86,22 @@
    configurations (the depthwise tails of every model of CONFIGS), and a
    width that cannot fit a block must raise, in the wrapper and in the C
    entry point;
-9. round-trips at 16 and 1024 lanes, and checks the f32 analysis
+10. round-trips at 16 and 1024 lanes, and checks the f32 analysis
    transform on the card against the CPU on a small input;
-10. path 8, the reference's codec (the ``host_coded`` line): path 1's
+11. path 8, the reference's codec (the ``host_coded`` line): path 1's
    model through ``Codec(backend="steps")`` and ``"fused"`` on path 1's
    first batch -- the host rANS coder (``entropy/rans``, built by g++ into
    ``build/host/``) codes z and y, one stream of each an image, every
    phase crossing to the host -- each round trip bit-exact, steps and
    fused byte-identical, both reconstructing path 1's device-backend
-   y_hat and x_hat, no kernel launched (not in ``update`` either); bpp
+   y_hat and x_hat, no kernel launched but K8 (not in ``update`` either); bpp
    beside the v4 stream's, ms a direction and the host coder's share;
    MLICPP_S_VBR at level 3 and the seeded ``vr_entbttlnck`` +
    ``quant_offset`` model at two levels through steps, bit-exact; one
    frame through ``python -m mlic_tpu_torch.tools.test --backend steps``
    and ``tools.decode``, which reads the backend from the streams
    (subprocesses), the PNG the encoder's x_hat rounded;
-11. path 9, the serving pipeline (the ``serve_pipeline`` line):
+12. path 9, the serving pipeline (the ``serve_pipeline`` line):
    ``tools.serve.main`` on the trained MLICPP_S at 512 lanes, 32
    synthetic frames in batches of 8 with ``--verify`` and containers, then
    without; on path 1's codec, ``roundtrip_stream`` (two batches in
@@ -88,7 +112,7 @@
    batch written as a container and decoded alone by ``tools.decode`` to
    g_s of the encoder's y_hat; img/s of the pipeline and the serial loop over 3
    alternated rounds, and the card's idle share in a profiled round;
-12. path 3, training (the ``train`` line): MLICPP_S at full width warm-
+13. path 3, training (the ``train`` line): MLICPP_S at full width warm-
    started from the trained weights under ``bfloat16_mixed``, Adam,
    lambda 0.0483, mse, batches of 8 random 256x256 crops of a dead-leaves
    pool (``pool_batches``): 3 warm-up steps, 20 timed (median, min, max ms,
@@ -101,11 +125,11 @@
    uninterrupted run's; and one f32 step of MLICPP_S at batch 1, 128x128,
    on the card against the CPU (loss within 1e-4, the gradient's global
    norm within 1e-3, relative);
-13. from training to serving: ``Codec.update`` on the fine-tuned weights and
+14. from training to serving: ``Codec.update`` on the fine-tuned weights and
    one 512-lane request of 8 dead-leaves frames, bit-exact with K1-K4, K6
    and K7 launched; its real bpp beside ``Trainer.evaluate``'s likelihood
    estimate on the same frames;
-14. path 4, variable-bitrate serving (the ``vbr_serve`` line): MLICPP_S_VBR
+15. path 4, variable-bitrate serving (the ``vbr_serve`` line): MLICPP_S_VBR
    under ``bfloat16`` at 512 lanes on the trained MLICPP_S weights
    (``load_matching``: every trained leaf taken, Gain at gain_init, whose
    top level is 1.0), one batch of 8 frames at each of the 6 levels and at
@@ -118,7 +142,7 @@
    with the VBR header; one ``vr_entbttlnck`` + ``quant_offset`` model on
    seeded weights whose level 0 needs wider factorized-prior rows than its
    top level, coded at both (the width ratchet, QuantABCD on the card);
-15. path 5, MGDA training (the ``vbr_train`` line): three steps of
+16. path 5, MGDA training (the ``vbr_train`` line): three steps of
    MLICPP_S_VBR from the trained weights under ``bfloat16_mixed``, batch 8
    of 256x256 crops, all 6 levels a step: ms a step, peak memory, losses
    finite, alpha on the simplex, no kernel launched; one f32 step at 1 x
@@ -126,7 +150,7 @@
    (the ``rd_vbr`` line) on MLICPP_S_VBR from the trained weights, two
    320x320 frames at every level and one interpolated gain through files,
    each decoded bit-exactly, the rate monotone in the gain;
-16. path 6, the flagship MLICPP_L (the ``l_path`` line): its trained
+17. path 6, the flagship MLICPP_L (the ``l_path`` line): its trained
    weights read from ``ckpts/bench_default_MLICPP_L`` (the ``weights_L``
    line: 1,215 arrays, stored in bfloat16, widened to f32), loaded strictly,
    under ``bfloat16`` at 512 lanes: ``Codec.update`` and path 1's three
@@ -144,7 +168,7 @@
    256^2 from the trained weights under ``bfloat16_mixed`` (ms a step,
    peak memory, losses finite, no kernel), a resume whose next loss is
    exact, one f32 step at 1 x 128^2 against the CPU;
-17. path 7, the small-decoder family at full width on seeded weights (the
+18. path 7, the small-decoder family at full width on seeded weights (the
    ``sd_path`` line): MLICPP_M_SMALL_DEC, two batches of 8 bit-exact, g_s's
    device time beside L's; MLICPP_M_SMALL_DEC_VBR at its 5 levels and at
    ``inputscale`` 0.3, bit-exact, bpp of the top level above level 0's;
@@ -158,7 +182,7 @@
    ``train_small_decoder_frozen`` line): ``tools.train --freeze`` on g_a
    and h_a for 3 steps, every frozen leaf bit-equal to the start and every
    other leaf with a gradient moved;
-18. path 10, the codec's other paths (the ``codec_paths`` line), on path
+19. path 10, the codec's other paths (the ``codec_paths`` line), on path
    1's settings and frames (path 1's ``update`` must take no fallback):
    format v3 (``MLIC_UNIFIED_Z=0``: z coded on the host) over 3 batches,
    bit-exact with K7, K3 and K6 once and K4 2 * slice_num times a
@@ -173,7 +197,7 @@
    chain bound); ``tools.test`` and ``tools.decode`` under
    ``MLIC_UNIFIED_Z=0`` (subprocesses, PNG exact) and
    ``tools.ab_stream_format`` at batch 8, 2 segments a regime;
-19. path 11, scale-out (the ``train_recipe``, ``data_parallel_world_1``,
+20. path 11, scale-out (the ``train_recipe``, ``data_parallel_world_1``,
    ``sharded``, ``poelic``, ``statistics`` and ``scale_out`` lines):
    ``tools.train`` in a subprocess on a folder of dead-leaves PNGs from the
    trained MLICPP_S with the reference's recipe -- ``--augment
@@ -194,7 +218,7 @@
    x 256^2 (ms, peak memory, finite losses) and an f32 step against the
    CPU at path 3's tolerances; ``tools.statistics`` on 4 frames, its bpp
    within 1e-6 of ``Trainer.evaluate``'s;
-20. path 12, the last modules (the ``last_modules`` line): ``tools.macs``
+21. path 12, the last modules (the ``last_modules`` line): ``tools.macs``
    for MLICPP_S, MLICPP_M_SMALL_DEC and MLICPP_L (dense and depthwise) at
    1920x1088 (GMACs, parameters -- L's 83.50 M and 41.72 M exact -- and the
    forward's ms beside PARITY.md's XLA counts); ``tools.profile_codec`` at
@@ -212,7 +236,7 @@
    plain version, timed: the kernels line's ``lanes`` and ``lanes_rows``
    rows).  Every kernel's device-side launch count over the path must
    equal the host's;
-21. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+22. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 
 With ``--cards N`` on a host of N cards it runs path 11's scale-out
@@ -358,14 +382,16 @@ AT_L_KEYS = ("launches", "status", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms", "kernel_ms", "queued_ms",
              "shape", "words", "escapes", "phases_checked")
 REQUEST_KERNELS = ("rans_encode_prep", "rans_encode_scan",
-                   "rans_encode_compact", "rans_decode_phase")
+                   "rans_encode_compact", "rans_decode_phase",
+                   "invariant_matmul")
 KERNEL_SYMBOLS = {"select_rows": "select_rows_kernel",
                   "eval_cdf": "eval_cdf_kernel",
                   "rans_encode_prep": "rans_encode_prep_kernel",
                   "rans_encode_scan": "rans_encode_kernel",
                   "rans_encode_compact": "rans_compact_kernel",
                   "rans_decode_phase": "rans_decode_kernel",
-                  "fused_block_tail": "fused_block_tail_"}
+                  "fused_block_tail": "fused_block_tail_",
+                  "invariant_matmul": "invariant_matmul_kernel"}
 
 
 def card_line() -> str:
@@ -593,11 +619,14 @@ def request_launches(cfg) -> dict:
     """What one compress and one decompress launch of each kernel, from
     the configuration: the rANS encode's K7, K3 and K6 once, K4 once for z
     and twice a slice; K1 and K2 none (``Codec.update`` only), K5 none
-    (its switch off)."""
+    (its switch off); K8 as ``k8_per_direction`` gives in each direction
+    and ``k8_in_analysis`` in the compress."""
     return {"select_rows": 0, "eval_cdf": 0, "rans_encode_prep": 1,
             "rans_encode_scan": 1, "rans_encode_compact": 1,
             "rans_decode_phase": 1 + 2 * cfg.slice_num,
-            "fused_block_tail": 0}
+            "fused_block_tail": 0,
+            "invariant_matmul": 2 * k8_per_direction(cfg)
+            + k8_in_analysis(cfg)}
 
 
 def check_request_launches(got: dict, cfg, where: str) -> None:
@@ -992,6 +1021,7 @@ def check_kernels(codec, counts, extras: bool = True):
     from mlic_tpu_torch.entropy import device_rans as dr
     from mlic_tpu_torch.entropy.parametric import eval_cdf, eval_cdf_plain
     from mlic_tpu_torch.entropy.stream import assemble_streams
+    from mlic_tpu_torch.ops._build import KERNELS, stream_handle
     from mlic_tpu_torch.ops.select_rows import select_rows, select_rows_plain
 
     dev = codec.device
@@ -1030,6 +1060,12 @@ def check_kernels(codec, counts, extras: bool = True):
           4 * n + 4 * 6 * n + rp.numel() * 4, 0,
           cuda_ms(lambda: rp[rows.long()], 50), list(rows.shape),
           lambda: select_rows(rows, rp))
+    if extras:
+        # the floor: an empty kernel on K1's grid, on the same stream
+        empty = KERNELS["select_rows"].function(
+            "select_rows_empty_launch", [ctypes.c_longlong, ctypes.c_void_p])
+        out[-1]["empty_kernel_queued_ms"] = queued_ms(
+            lambda: empty(n, stream_handle(rows)))
 
     # K2 as the encoder uses it: slot and slot+1 over the whole y payload.
     m, b, A, C, Bc, Lf = select_rows(idx, rp)
@@ -2208,7 +2244,7 @@ def vbr_train_path(state) -> dict:
     return counts
 
 
-def l_path(frames, pool) -> dict:
+def l_path(frames, pool, k8_all: list, contracts: list) -> dict:
     """Path 6: MLICPP_L on its trained weights (the ``weights_L`` line),
     under ``bfloat16`` at 512 lanes: ``Codec.update``, the N_REQUESTS
     batches of path 1 and one batch of L_BIG_BATCH frames (path 1's 16 and
@@ -2220,8 +2256,11 @@ def l_path(frames, pool) -> dict:
     ``evaluate_codec`` over L_EVAL_FRAMES frames under ``bfloat16_mixed``
     with the fused tails (K5 as many times an image as the model has
     fusable tails in g_a and, twice, in g_s), and a profile of one
-    ``decompress_one_image`` there.  Returns the launch counts and g_s's
-    ms, the kernels' rows at L's shapes and the trained state_dict."""
+    ``decompress_one_image`` there.  Between, the batch contract at
+    L_BIG_BATCH (``batch_contract_phase``, into ``contracts``) and K8 at L's
+    product shapes (``k8_cases``, into ``k8_all``).  Returns the launch
+    counts and g_s's ms, the kernels' rows at L's shapes and the trained
+    state_dict."""
     import torch
 
     from mlic_tpu_torch.codec import Codec
@@ -2244,6 +2283,8 @@ def l_path(frames, pool) -> dict:
     rows = serve(codec, frames, "L", cfg)
     rows += serve(codec, [big], f"L_batch_{L_BIG_BATCH}", cfg)
     counts = _build.launch_counts()
+    contracts.append(batch_contract_phase(codec, big, L_MODEL))
+    k8_all += k8_cases(codec, frames[0], L_MODEL)
     if not (in_update["select_rows"] and in_update["eval_cdf"]):
         raise AssertionError(f"path 6: update launched {in_update}")
     missing = [k for k, v in counts.items()
@@ -2409,7 +2450,7 @@ def decoder_only(frames) -> dict:
     return out
 
 
-def sd_path(frames, l_g_s_ms: float) -> dict:
+def sd_path(frames, l_g_s_ms: float, k8_all: list, contracts: list) -> dict:
     """Path 7: the small-decoder family at full width on seeded weights.
     MLICPP_M_SMALL_DEC under ``bfloat16`` at 512 lanes: SD_BATCHES batches
     of 8 frames, bit-exact with the configuration's launches, and g_s's
@@ -2418,7 +2459,9 @@ def sd_path(frames, l_g_s_ms: float) -> dict:
     bit-exact with those launches, bpp at the top level (gain 1.0) above
     level 0's; the ``vr_entbttlnck`` + ``quant_offset`` request whose
     lowest level (gain 0.002424) widens the rows; the decoder-only
-    deployment.  Returns the launch counts of the whole path."""
+    deployment.  After its batches, the batch contract at 8 and K8 at its
+    product shapes (into ``contracts`` and ``k8_all``).  Returns the launch
+    counts of the whole path."""
     from mlic_tpu_torch.codec import Codec
     from mlic_tpu_torch.ops import _build
     t_path = time.perf_counter()
@@ -2427,6 +2470,8 @@ def sd_path(frames, l_g_s_ms: float) -> dict:
     codec = Codec(model, n_lanes=N_LANES, device="cuda")
     codec.update()
     rows = serve(codec, frames[:SD_BATCHES], "small_decoder", model.cfg)
+    contracts.append(batch_contract_phase(codec, frames[0], SD_MODEL))
+    k8_all += k8_cases(codec, frames[0], SD_MODEL)
     enc = codec.compress(frames[0])
     g_s_ms = cuda_ms(lambda: model.synthesize(enc["y_hat"]), 5)
     del enc, codec, model
@@ -2599,7 +2644,8 @@ def host_coded_path(state, model, frames, dev_codec) -> dict:
     through ``backend="steps"`` and ``"fused"`` on path 1's first batch,
     twice (the second timed): each round trip bit-exact, steps and fused
     byte-identical, both reconstructing path 1's device-backend y_hat and
-    x_hat; no kernel launched, in ``update`` or a request.  bpp beside the
+    x_hat; no kernel launched but K8 (the context's products, on the card
+    whichever backend codes), in ``update`` or a request.  bpp beside the
     v4 stream's, ms a direction and the host coder's share of it, the
     coder built (``rans_backend``).  Then MLICPP_S_VBR on the trained
     weights at level VBR_HOST_LEVEL and the seeded ``vr_entbttlnck`` +
@@ -2659,8 +2705,9 @@ def host_coded_path(state, model, frames, dev_codec) -> dict:
     bad = [k for k in ("y_hat_equals_device_backend",
                        "x_hat_equals_device_backend")
            for r in rows.values() if not r[k]]
+    others = {k: v for k, v in counts.items() if k != "invariant_matmul"}
     if bad or not out["steps_fused_streams_identical"] \
-            or any(counts.values()):
+            or any(others.values()) or not counts["invariant_matmul"]:
         raise AssertionError(f"path 8: {bad}, steps and fused identical "
                              f"{out['steps_fused_streams_identical']}, "
                              f"launches {counts}")
@@ -3868,8 +3915,8 @@ def batch_split_first_step(n: int) -> dict:
 
     from mlic_tpu_torch.data.folder import dead_leaves_pool, pool_batches
     from mlic_tpu_torch.loss import rate_distortion_loss
-    from mlic_tpu_torch.models import context
     from mlic_tpu_torch.models.registry import get_model
+    from mlic_tpu_torch.ops import invariant_matmul as im
     from mlic_tpu_torch.tools.train import parse_args
     from mlic_tpu_torch.train.trainer import (
         TrainConfig,
@@ -3915,13 +3962,11 @@ def batch_split_first_step(n: int) -> dict:
                                for i in range(n)]))
         for h in hooks:
             h.remove()
-        batched = context.per_image     # the products an image at a time
-        context.per_image = lambda fn, *xs: torch.cat(
-            [fn(*(v[i:i + 1] for v in xs)) for i in range(len(xs[0]))])
+        im.ROUTE = "plain"              # the products an image at a time
         try:
             alone = loss(slice(None), slice(None))
         finally:
-            context.per_image = batched
+            im.ROUTE = "auto"
     y_whole, y_split = seen["y"][0], torch.cat(seen["y"][1:])
     hyper = int((seen["hyper"][0] != torch.cat(seen["hyper"][1:])).sum())
     jump = {k: int(((seen[k][0] - torch.cat(seen[k][1:])).abs() >= 0.5)
@@ -4463,6 +4508,306 @@ def last_modules_path(state, codec, frames, wall_ms: dict,
     return counts, lanes_rows
 
 
+# Path 13: batch invariance.  K8's products at batches 1, 8 and 128 against
+# their plain versions; the JAX package's batch contract on the card.
+K8_BATCHES = (1, 8, 128)
+# |kernel - plain| <= 2 gamma_K (|A|.|B| + |bias|) elementwise, gamma_K =
+# K u / (1 - K u), u = 2^-24: both sum the same K products of f32 values in
+# other orders, each within gamma_K of the exact sum (the a priori bound of a
+# K-long f32 sum).  bf16 operands add 2^-6 (|A|.|B| + |bias|): K8 rounds
+# its f32 sum to bf16 once, cuDNN the product and again after its bias.
+K8_BF16_TOL = 2.0 ** -6
+K8_OPS = ("linear", "kt_v", "ctx_q", "conv2d")
+K8_SOURCE = "mlic_tpu_torch/csrc/invariant_matmul.cu"
+K8_REPLACES = ("none (XLA products of mlic_tpu/models/context.py:172, "
+               ":218-219, :237, :272, and the analysis transforms' "
+               "convolutions that cuDNN orders by the batch)")
+
+
+def k8_per_direction(cfg) -> int:
+    """K8's launches in the entropy path of one coding direction: each
+    slice's window fusion, and from the second slice on the inter and
+    intra contexts' two contractions and reprojection."""
+    return cfg.slice_num + 6 * (cfg.slice_num - 1)
+
+
+def k8_in_analysis(cfg) -> int:
+    """K8's launches in g_a and h_a (``models/transforms.py``): the 1x1
+    convolutions over the image's channels (two in a depthwise encoder,
+    the skip alone in a dense one), and in a dense encoder g_a's last
+    convolution and h_a's five."""
+    if cfg.depthwise and not cfg.small_decoder:
+        return 2
+    return 1 + 1 + 5
+
+
+def capture_products(codec, x) -> list:
+    """The K8 calls of one compress and one decompress of ``x``: [(op,
+    args, kwargs, direction)], the arguments as the model handed them."""
+    from mlic_tpu_torch.ops import invariant_matmul as im
+    calls, where = [], ["compress"]
+    orig = {n: getattr(im, n) for n in K8_OPS}
+
+    def wrap(name):
+        def f(*args, **kwargs):
+            calls.append((name, args, kwargs, where[0]))
+            return orig[name](*args, **kwargs)
+        return f
+    for n in K8_OPS:
+        setattr(im, n, wrap(n))
+    try:
+        enc = codec.compress(x)
+        where[0] = "decompress"
+        codec.decompress(enc["strings"], enc["shape"])
+    finally:
+        for n in K8_OPS:
+            setattr(im, n, orig[n])
+    return calls
+
+
+def _k8_shape(name, args) -> dict:
+    """(groups, M, N, K) of one call, its bytes (each input once, the
+    output once) and f32 operations."""
+    a, b = args[0], args[1]
+    es = a.element_size()
+    if name == "linear":
+        g, k, n = a.shape[0], a.shape[-1], b.shape[0]
+        m = a[0].numel() // k
+        nbytes = a.numel() * es + b.numel() * es + g * m * n * es
+    elif name == "kt_v":
+        g, m, n, k = a.shape[0] * a.shape[2], a.shape[3], b.shape[3], \
+            a.shape[1]
+        nbytes = (a.numel() + b.numel() + g * m * n) * es
+    elif name == "ctx_q":
+        g, m, n, k = b.shape[0] * b.shape[2], b.shape[1], a.shape[3], \
+            b.shape[3]
+        nbytes = (a.numel() + b.numel() + g * m * n) * es
+    else:
+        s = args[3] if len(args) > 3 else 1
+        g, n, win = a.shape[0], b.shape[0], b.shape[-1]
+        m = ((a.shape[2] - 1) // s + 1) * ((a.shape[3] - 1) // s + 1)
+        k = a.shape[1] * win * win
+        nbytes = (a.numel() + b.numel() + g * m * n) * es
+    if len(args) > 2 and args[2] is not None:
+        nbytes += args[2].numel() * es
+    return {"groups": g, "mnk": [m, n, k], "bytes": nbytes,
+            "ops": 2.0 * g * m * n * k}
+
+
+def _k8_images(name, args, pick):
+    """``args`` with ``pick`` applied to the operands that carry the image
+    axis (both of an attention contraction, the input of the others)."""
+    lead = (0, 1) if name in ("kt_v", "ctx_q") else (0,)
+    return tuple(pick(t) if i in lead else t for i, t in enumerate(args))
+
+
+def _k8_batch(name, args, b: int):
+    """``args`` at batch ``b``: the first ``b`` images, or the captured
+    batch repeated."""
+    import torch
+    n = args[0].shape[0]
+    return _k8_images(name, args, lambda t: t[:b] if b <= n else torch.cat(
+        [t] * (-(-b // n)))[:b])
+
+
+def _k8_absref(name, args):
+    """The same product of |operands| in float64: the scale of the bound."""
+    import torch
+    a = [None if t is None or not torch.is_tensor(t) else t.double().abs()
+         for t in args]
+    if name == "linear":
+        return torch.nn.functional.linear(a[0], a[1], a[2])
+    if name == "kt_v":
+        return torch.einsum("bnhd,bnhe->bhde", a[0], a[1])
+    if name == "ctx_q":
+        return torch.einsum("bhde,bnhd->bnhe", a[0], a[1])
+    s = args[3] if len(args) > 3 else 1
+    return torch.nn.functional.conv2d(a[0], a[1], a[2], s,
+                                      args[1].shape[-1] // 2)
+
+
+def k8_case(name, args, label: str, timed: bool) -> dict:
+    """One product against its plain version at K8_BATCHES (image i of
+    batch B bit-equal to K8 on image i alone, every row within the stated
+    bound of the plain version), timed at the largest when ``timed``."""
+    import torch
+
+    from mlic_tpu_torch.ops import invariant_matmul as im
+    fn = getattr(im, name)
+    x8 = _k8_batch(name, args, min(8, args[0].shape[0]))
+    n8 = x8[0].shape[0]
+    one = [fn(*_k8_images(name, x8, lambda t, i=i: t[i:i + 1]))
+           for i in range(n8)]
+    shape = _k8_shape(name, x8)
+    k = shape["mnk"][2]
+    u = 2.0 ** -24
+    gamma = k * u / (1 - k * u)
+    bf16 = args[0].dtype == torch.bfloat16
+    absref = _k8_absref(name, x8)
+    tol = 2 * gamma * absref + (K8_BF16_TOL * absref if bf16 else 0.0)
+    row = {"model": label, "op": name, "dtype": str(args[0].dtype),
+           "shape_a_image": list(args[0].shape[1:]),
+           "groups_per_image": shape["groups"] // n8, "mnk": shape["mnk"],
+           "max_abs_err": 0.0, "max_err_over_bound": 0.0,
+           "rows_equal_batch_1": True}
+    for b in K8_BATCHES:
+        xb = _k8_batch(name, x8, b)
+        got = fn(*xb)
+        old, im.ROUTE = im.ROUTE, "plain"
+        try:
+            ref = fn(*xb)
+        finally:
+            im.ROUTE = old
+        for c in range(0, b, n8):
+            d = (got[c:c + n8].double() - ref[c:c + n8].double()).abs()
+            t = tol[:min(n8, b - c)]
+            row["max_abs_err"] = max(row["max_abs_err"], float(d.max()))
+            row["max_err_over_bound"] = max(
+                row["max_err_over_bound"],
+                float((d / t.clamp(min=1e-300)).max()))
+        same = all(torch.equal(got[i], one[i % n8][0]) for i in range(b))
+        row["rows_equal_batch_1"] &= same
+        del got, ref
+    if timed:
+        xb = _k8_batch(name, x8, K8_BATCHES[-1])
+        sb = _k8_shape(name, xb)
+        bms, by = bound(sb["bytes"], sb["ops"])
+        old = im.ROUTE
+        try:
+            row.update(batch=K8_BATCHES[-1], ms=cuda_ms(lambda: fn(*xb), 5),
+                       queued_ms=queued_ms(lambda: fn(*xb), 5),
+                       bound_ms=bms, bound_by=by,
+                       bound_parts_ms=[sb["bytes"] / HBM_BPS * 1e3,
+                                       sb["ops"] / F32_OPS * 1e3])
+            im.ROUTE = "batched"
+            row["library_ms"] = cuda_ms(lambda: fn(*xb), 5)
+            im.ROUTE = "plain"
+            row["plain_ms"] = cuda_ms(lambda: fn(*xb), 2)
+        finally:
+            im.ROUTE = old
+    if row["max_err_over_bound"] > 1.0 or not row["rows_equal_batch_1"]:
+        raise AssertionError(f"K8 {label} {name}: {row}")
+    return row
+
+
+def k8_cases(codec, x, label: str, timed: bool = False) -> list:
+    """K8 against its plain version at every product shape of one compress
+    and one decompress of ``x`` by ``codec`` (``k8_case`` a shape), each
+    case with the calls it stands for in each direction."""
+    import torch
+    with torch.no_grad():
+        return _k8_cases(codec, x, label, timed)
+
+
+def _k8_cases(codec, x, label: str, timed: bool) -> list:
+    calls = capture_products(codec, x)
+    cases = {}
+    for name, args, kwargs, direction in calls:
+        args = args + tuple(kwargs.values())
+        key = (name, tuple(tuple(t.shape) if hasattr(t, "shape") else t
+                           for t in args))
+        if key not in cases:
+            cases[key] = (name, args, {"compress": 0, "decompress": 0})
+        cases[key][2][direction] += 1
+    rows = []
+    for name, args, per in cases.values():
+        row = k8_case(name, args, label, timed)
+        row["calls"] = per
+        rows.append(row)
+    want = {"compress": k8_per_direction(codec.model.cfg)
+            + k8_in_analysis(codec.model.cfg),
+            "decompress": k8_per_direction(codec.model.cfg)}
+    got = {d: sum(r["calls"][d] for r in rows) for d in want}
+    if got != want:
+        raise AssertionError(f"K8 {label}: calls {got} a direction, the "
+                             f"configuration gives {want}")
+    print(json.dumps({"k8_cases": {"model": label, "cases": rows}}),
+          flush=True)
+    return rows
+
+
+def k8_row(cases: list, counts: dict) -> dict:
+    """K8's row of the kernels line: MLICPP_S's products at batch 128
+    summed over the calls of one direction (decompress; compress adds the
+    analysis convolutions), the errors over every case of every model."""
+    timed = [r for r in cases if "ms" in r]
+
+    def total(key, direction):
+        return sum(r[key] * r["calls"][direction] for r in timed)
+    parts = [sum(r["bound_parts_ms"][i] * r["calls"]["decompress"]
+                 for r in timed) for i in (0, 1)]
+    directions = {d: {k: total(k, d) for k in (
+        "ms", "queued_ms", "plain_ms", "library_ms", "bound_ms")}
+        for d in ("compress", "decompress")}
+    for d in directions:
+        directions[d]["launches"] = sum(r["calls"][d] for r in timed)
+    return {"name": "invariant_matmul", "route": "cuda", "source": K8_SOURCE,
+            "replaces": K8_REPLACES, "launches": counts["invariant_matmul"],
+            "status": "within bound, batch-invariant",
+            "max_abs_err": max(r["max_abs_err"] for r in cases),
+            "max_err_over_bound": max(r["max_err_over_bound"]
+                                      for r in cases),
+            "ms": directions["decompress"]["ms"],
+            "queued_ms": directions["decompress"]["queued_ms"],
+            "plain_ms": directions["decompress"]["plain_ms"],
+            "library_ms": directions["decompress"]["library_ms"],
+            "bound_ms": directions["decompress"]["bound_ms"],
+            "bound_by": "bytes" if parts[0] >= parts[1] else "operations",
+            "batch": K8_BATCHES[-1], "model": MODEL,
+            "per_direction": directions, "cases_checked": len(cases)}
+
+
+def big_request(codec, x) -> dict:
+    """The main path's batch of 128 timed: two more whole requests (after
+    ``serve``'s), a profiled compress and decompress (device busy ms, idle
+    share against the whole medians), peak memory, and the device's own
+    launch counts of one compress held equal to the host's."""
+    import torch
+    whole = {"compress": [], "decompress": []}
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = codec.compress(x)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        codec.decompress(enc["strings"], enc["shape"])
+        torch.cuda.synchronize()
+        whole["compress"].append((t1 - t0) * 1e3)
+        whole["decompress"].append((time.perf_counter() - t1) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    wall = {k: float(np.median(v)) for k, v in whole.items()}
+    prof = profile_request(codec, x, wall, label="profile_batch_128")
+    _, host = device_proof(lambda: codec.compress(x), "batch_128 compress",
+                           {"invariant_matmul": 1})
+    row = {"batch": list(x.shape), "whole_ms": whole, "peak_mem_gib": peak,
+           "launches_compress": host,
+           "kernel_launches": {p: prof[p]["kernel_launches"]
+                               for p in ("compress", "decompress")},
+           "idle_share": {p: prof[p]["idle_share"]
+                          for p in ("compress", "decompress")}}
+    print(json.dumps({"batch_128_request": row}), flush=True)
+    return row
+
+
+def batch_contract_phase(codec, frames, label: str) -> dict:
+    """``tools.batch_contract.check`` on the card: the batch's streams
+    against each image's alone byte for byte, every hooked entropy-path
+    module's entries, the containers at its fixed indices decoded alone.
+    Raises on any count that is not 0."""
+    from mlic_tpu_torch.tools import batch_contract as bc
+    t0 = time.perf_counter()
+    res = bc.check(codec, frames)
+    res.pop("module_entries")
+    res.update(model=label, broken=bc.broken(res),
+               phase_s=time.perf_counter() - t0)
+    print(json.dumps({"batch_contract": res}), flush=True)
+    if res["broken"]:
+        raise AssertionError(f"batch contract of {label} at batch "
+                             f"{len(frames)}: {res['broken']}")
+    return res
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4482,6 +4827,7 @@ def main(argv=None) -> int:
     from mlic_tpu_torch.data.folder import dead_leaves_pool
     from mlic_tpu_torch.models.registry import get_model
     from mlic_tpu_torch.ops import _build
+    from mlic_tpu_torch.tools.batch_contract import contract_frames
 
     card = card_line()
     print(card, flush=True)
@@ -4503,6 +4849,9 @@ def main(argv=None) -> int:
                             cache_dir="")
     frames = [pool[(r % 2) * BATCH:(r % 2 + 1) * BATCH]
               for r in range(N_REQUESTS)]
+    # the North star's batch: 128 distinct frames (the pool's 16, flipped
+    # and rolled)
+    x128 = contract_frames(BIG_BATCH, HEIGHT, WIDTH, pool=pool)
 
     # path 1: the server builds its codec and tables, then serves
     _build.reset_launch_counts()
@@ -4518,8 +4867,10 @@ def main(argv=None) -> int:
                              "path: the parametric table failed a check")
     in_update = _build.launch_counts()
     serve(codec, frames, cfg=model.cfg)      # each request's launches exact
+    serve(codec, [x128], f"batch_{BIG_BATCH}", model.cfg)
     counts = _build.launch_counts()
-    per_batch = {k: (v - in_update[k]) / N_REQUESTS for k, v in counts.items()}
+    per_batch = {k: (v - in_update[k]) / (N_REQUESTS + 1)
+                 for k, v in counts.items()}
     print(json.dumps({"launches_on_main_path": counts,
                       "launches_in_update": in_update,
                       "launches_per_batch": per_batch}), flush=True)
@@ -4528,6 +4879,8 @@ def main(argv=None) -> int:
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
 
+    big_request(codec, x128)
+    contracts = [batch_contract_phase(codec, x128, MODEL)]
     wall_ms = stage_times(codec, frames)
     profile_request(codec, frames[0], wall_ms)
     noise = np.random.default_rng(SEED).integers(
@@ -4537,6 +4890,7 @@ def main(argv=None) -> int:
     fused_against_unfused(state, frames[0])
     kernels = check_kernels(codec, counts)
     kernels.append(check_fused_block(eval_counts["fused_block_tail"]))
+    k8_all = k8_cases(codec, frames[0], MODEL, timed=True)
     check_decode_lanes(codec)
     check_lane_widths(model, frames)
     check_small_reference(state)
@@ -4551,11 +4905,16 @@ def main(argv=None) -> int:
     rd_counts, rd_curve = rd_vbr_path()
     last_counts, lanes_rows = last_modules_path(state, codec, frames,
                                                 wall_ms, rd_curve)
-    l_counts = l_path(frames, pool)
+    l_counts = l_path(frames, pool, k8_all, contracts)
     l_train_counts = l_train_path(l_counts.pop("state"))
-    sd_counts = sd_path(frames, l_counts["g_s_ms"])
+    sd_counts = sd_path(frames, l_counts["g_s_ms"], k8_all, contracts)
     sd_train_counts = sd_freeze_path()
     scale_counts = scale_out_path(state, model, codec, frames)
+    kernels.append(k8_row(k8_all, counts))
+    print(json.dumps({"batch_contracts": [
+        {k: c[k] for k in ("model", "batch", "y_bytes_differing",
+                           "z_bytes_differing", "broken")}
+        for c in contracts]}), flush=True)
     for k in kernels:
         k["launches_by_path"] = {"serve": counts[k["name"]],
                                  "eval": eval_counts[k["name"]],

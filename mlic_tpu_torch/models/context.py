@@ -4,9 +4,15 @@ Port of ``mlic_tpu/models/context.py:46-322``: the checkerboard local
 window attention (``LocalContext``, in the JAX package's shifted-correlation
 form with the anchor mask derived from the geometry on every call), the
 channel context, the two linear-complexity global attentions, the entropy
-parameter head and the latent residual prediction.  All plain PyTorch in
-f32: these feed the entropy parameters that encode and decode must compute
-bit-identically.
+parameter head and the latent residual prediction.  All f32: these feed
+the entropy parameters that encode and decode must compute bit-identically,
+and an image's must not depend on its batch (a container is decoded
+alone).  The long products whose reduction order cuBLAS and cuDNN pick by
+the batch on the card -- the window fusion, the linear attentions' two
+contractions, the two 5x5 reprojections -- go through
+``ops/invariant_matmul`` (kernel K8 on the card when no gradient is
+recorded; the layers are marked ``invariant``); the rest is plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from mlic_tpu_torch.models.layers import (
     conv5x5,
     gelu,
 )
+from mlic_tpu_torch.ops import invariant_matmul as im
 from mlic_tpu_torch.ops.math import (
     ckbd_anchor,
     ckbd_anchor_squeeze,
@@ -93,6 +100,7 @@ class LocalContext(nn.Module):
         self.rel_pos_table = nn.Parameter(
             torch.zeros((2 * win - 1) ** 2, num_heads))
         self.fusion = Dense(win * win * dim, 2 * dim)
+        self.fusion.invariant = True
         self.proj = Dense(2 * dim, 2 * dim)
         self.norm2 = nn.LayerNorm(2 * dim, eps=1e-6)
         self.mlp = MLP(2 * dim, int(2 * dim * mlp_ratio), 2 * dim)
@@ -144,8 +152,8 @@ class LocalContext(nn.Module):
         out = torch.matmul(attn, vs)                      # [b,L,heads,ws2,hd]
         out = out.permute(0, 1, 3, 2, 4).reshape(b, L, ws2 * c)
         # Per-window fusion conv(k=win) == Dense over the flattened window,
-        # (i*w + j)*C + c order; its long reduction an image at a time.
-        out = self.proj(per_image(self.fusion, out))
+        # (i*w + j)*C + c order.
+        out = self.proj(self.fusion(out))
         out = out + self.mlp(self.norm2(out))
         return out.reshape(b, h, w, 2 * c).permute(0, 3, 1, 2)
 
@@ -176,41 +184,16 @@ class _QKVConv(nn.Module):
         return self.dw(self.pw(x))
 
 
-def per_image(fn, *xs):
-    """``fn`` on each image of the batch alone, the results concatenated,
-    when no gradient is recorded (coding); one call on the whole batch
-    otherwise (training, whose products are never decoded).
-
-    Entropy parameters must not depend on what else is in the batch: a
-    stream encoded in a batch is decoded alone (a container a file) and
-    must see the same floats.  The card's BLAS picks its kernel, and with
-    it the order of a long reduction, by the problem's size, so a product
-    whose rows span the batch can round an image differently at another
-    batch size; on an image alone the shape is the same at every batch.
-    The products that showed it on an H100 (MLICPP_S at batches of 8 and
-    32 against 1) take this path: the linear attentions' contractions, the
-    local context's window fusion and the inter-slice context's 5x5
-    reprojection."""
-    if xs[0].shape[0] == 1 or torch.is_grad_enabled():
-        return fn(*xs)
-    return torch.cat([fn(*(x[i:i + 1] for x in xs))
-                      for i in range(xs[0].shape[0])])
-
-
 def _linear_attention(q, k, v, num_heads: int):
     """softmax(K over space)^T V, then times softmax(Q over head channels).
     q, k, v: [B, N, C] -> [B, N, C] (context.py:206); the two contractions
-    an image at a time (``per_image``)."""
+    batch-invariant (K8)."""
     b, n, c = q.shape
     hd = c // num_heads
     q = torch.softmax(q.reshape(b, n, num_heads, hd), dim=3)
     k = torch.softmax(k.reshape(b, n, num_heads, hd), dim=1)
     v = v.reshape(b, n, num_heads, hd)
-    ctx = per_image(lambda k1, v1: torch.einsum("bnhd,bnhe->bhde", k1, v1),
-                    k, v)
-    out = per_image(lambda c1, q1: torch.einsum("bhde,bnhd->bnhe", c1, q1),
-                    ctx, q)
-    return out.reshape(b, n, c)
+    return im.ctx_q(im.kt_v(k, v), q).reshape(b, n, c)
 
 
 def _tokens(x: torch.Tensor) -> torch.Tensor:
@@ -230,6 +213,7 @@ class LinearGlobalInterContext(nn.Module):
         self.values = _QKVConv(dim, dim)
         mid = out_dim * 3 // 2
         self.reprojection = conv5x5(dim, mid, 1)
+        self.reprojection.invariant = True
         self.mlp0 = conv1x1(mid, out_dim * 2)
         self.mlp1 = DepthwiseConv2D(out_dim * 2, 3)
         self.mlp2 = conv1x1(out_dim * 2, out_dim)
@@ -239,8 +223,7 @@ class LinearGlobalInterContext(nn.Module):
         b, c, h, w = x.shape
         att = _linear_attention(_tokens(self.queries(x)), _tokens(self.keys(x)),
                                 _tokens(self.values(x)), self.num_heads)
-        att = per_image(self.reprojection,
-                        att.reshape(b, h, w, c).permute(0, 3, 1, 2))
+        att = self.reprojection(att.reshape(b, h, w, c).permute(0, 3, 1, 2))
         mlp = self.mlp2(gelu(self.mlp1(gelu(self.mlp0(att)))))
         return self.skip(att) + mlp
 
@@ -257,6 +240,7 @@ class LinearGlobalIntraContext(nn.Module):
         self.keys = _QKVConv(dim, dim)
         self.values = _QKVConv(dim, dim)
         self.reprojection = conv5x5(dim, dim * 2, 1)
+        self.reprojection.invariant = True
         self.mlp0 = conv1x1(dim * 2, dim * 4)
         self.mlp1 = DepthwiseConv2D(dim * 4, 3)
         self.mlp2 = conv1x1(dim * 4, dim * 2)

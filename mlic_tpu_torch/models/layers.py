@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mlic_tpu_torch.ops import invariant_matmul as im
 from mlic_tpu_torch.ops.fused_block import fused_block_tail, use_fused_blocks
 from mlic_tpu_torch.ops.math import lower_bound
 
@@ -23,19 +24,25 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense`` over the last axis; weight [out, in]."""
+    """flax ``nn.Dense`` over the last axis; weight [out, in].  With
+    ``invariant`` set, each image's rows batch-invariant
+    (``ops/invariant_matmul``: K8 on the card when no gradient is
+    recorded)."""
 
     def __init__(self, in_features: int, features: int):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(features, in_features))
         self.bias = nn.Parameter(torch.zeros(features))
+        self.invariant = False
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        linear = im.linear if self.invariant else F.linear
+        return linear(x, self.weight, self.bias)
 
 
 class Conv2d(nn.Module):
-    """flax ``nn.Conv`` with symmetric ("SAME" for odd k) padding; OIHW."""
+    """flax ``nn.Conv`` with symmetric ("SAME" for odd k) padding; OIHW.
+    With ``invariant`` set, batch-invariant as ``Dense``'s."""
 
     def __init__(self, in_ch: int, features: int, kernel_size: int,
                  stride: int = 1, dtype=None):
@@ -45,9 +52,13 @@ class Conv2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.stride = stride
         self.dtype = dtype
+        self.invariant = False
 
     def forward(self, x):
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        if self.invariant:
+            return im.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
+                             self.stride)
         return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
                         self.stride, self.weight.shape[-1] // 2)
 
@@ -73,7 +84,8 @@ class DepthwiseConv2D(nn.Module):
 
 
 class PointwiseConv(nn.Module):
-    """1x1 conv (layers.py:78); a strided 1x1 conv is subsampling."""
+    """1x1 conv (layers.py:78); a strided 1x1 conv is subsampling.  With
+    ``invariant`` set, batch-invariant as ``Conv2d``'s."""
 
     def __init__(self, in_ch: int, features: int, stride: int = 1,
                  dtype=None):
@@ -82,12 +94,14 @@ class PointwiseConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.stride = stride
         self.dtype = dtype
+        self.invariant = False
 
     def forward(self, x):
         if self.stride != 1:
             x = x[..., ::self.stride, ::self.stride]
         dt = self.dtype or x.dtype
-        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        conv = im.conv2d if self.invariant else F.conv2d
+        return conv(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 def conv1x1(in_ch: int, features: int, stride: int = 1, dtype=None):

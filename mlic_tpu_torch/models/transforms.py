@@ -6,6 +6,16 @@ g_a/h_a/g_s; their outputs are cast back to f32.  ``gdn_dtype`` is the
 GDN/IGDN policy of g_a and g_s: ``None`` computes the norm in f32 with
 casts around it, the compute dtype is the mixed policy (``layers.GDN``).
 h_s always runs in f32: it feeds the entropy parameters.
+
+An image's latent must not depend on its batch (its streams coded in a
+batch equal its streams coded alone).  The convolutions of g_a and h_a
+whose reductions cuDNN was seen to order by the batch on the H100
+(``tools.batch_contract``'s hooks, at batches 8 to 128 of MLICPP_S,
+MLICPP_L and the small decoder) are marked ``invariant``, which runs them
+through ``ops/invariant_matmul`` (K8 when coding on the card): the 1x1
+convolutions over the image's three channels, and in the dense encoder
+(the small decoder's) the convolutions at the latent's resolution, g_a's
+last and every one of h_a.
 """
 
 from __future__ import annotations
@@ -37,6 +47,11 @@ class AnalysisTransform(nn.Module):
         self.rbs2 = ResidualBlockWithStride(N, N, 2, dw, dt, gdt)
         self.rb2 = ResidualBlock(N, N, dw, dt)
         self.out = Conv3x3(N, M, 2, dw, dt)
+        self.rbs0.skip.invariant = True
+        if dw:
+            self.rbs0.conv1.dw.point.invariant = True
+        else:
+            self.out.conv.invariant = True
 
     def forward(self, x):
         if self.dtype is not None:
@@ -59,6 +74,9 @@ class HyperAnalysis(nn.Module):
         self.c2 = Conv3x3(N, N, 2, dw, dt)
         self.c3 = Conv3x3(N, N, 1, dw, dt)
         self.c4 = Conv3x3(N, N, 2, dw, dt)
+        if not dw:
+            for m in (self.c0, self.c1, self.c2, self.c3, self.c4):
+                m.conv.invariant = True
 
     def forward(self, x):
         if self.dtype is not None:

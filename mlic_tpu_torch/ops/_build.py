@@ -135,6 +135,10 @@ KERNELS = {k.name: k for k in (
     # is_bf16, stream
     Kernel("fused_block_tail", "fused_block_tail.cu",
            "fused_block_tail_launch", [_P] * 9 + [_I] * 7 + [_P]),
+    # &Problem (pointers, strides, shapes; ops/invariant_matmul.Problem),
+    # stream
+    Kernel("invariant_matmul", "invariant_matmul.cu",
+           "invariant_matmul_launch", [_P, _P]),
 )}
 
 

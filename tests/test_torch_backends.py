@@ -28,7 +28,7 @@ from mlic_tpu.entropy.models import entropy_bottleneck_tables as jax_eb
 from mlic_tpu.entropy.rans import coder as jax_coder
 from mlic_tpu.models.registry import get_model as jax_get_model
 from mlic_tpu_torch.codec import Codec
-from mlic_tpu_torch.models.context import per_image
+from mlic_tpu_torch.ops.invariant_matmul import _dispatch
 from mlic_tpu_torch.models.registry import get_model
 from mlic_tpu_torch.weights import from_flax, init_params, to_flax
 
@@ -185,8 +185,9 @@ def test_every_codec_decodes_every_stream(jax_side, coded, monkeypatch):
 
 
 def test_per_image_only_when_coding():
-    """``per_image`` splits the batch under ``no_grad`` (coding) and calls
-    once with a gradient (training)."""
+    """The batch-invariant products' plain version splits the batch under
+    ``no_grad`` on the CPU (coding) and calls once with a gradient
+    (training)."""
     calls = []
 
     def fn(a):
@@ -195,10 +196,11 @@ def test_per_image_only_when_coding():
 
     x = torch.ones(3, 2)
     with torch.no_grad():
-        assert torch.equal(per_image(fn, x), x * 2)
+        assert torch.equal(_dispatch(fn, (x,), None), x * 2)
     assert calls == [1, 1, 1]
     calls.clear()
-    assert torch.equal(per_image(fn, x.requires_grad_()), x.detach() * 2)
+    assert torch.equal(_dispatch(fn, (x.requires_grad_(),), None),
+                       x.detach() * 2)
     assert calls == [3]
 
 

@@ -41,7 +41,7 @@ def test_port_imports_without_jax():
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
-    assert len(names) >= 65                       # every module was imported
+    assert len(names) >= 67                       # every module was imported
     for name in ("tools.decode", "tools.extract_decoder", "tools.serve",
                  "tools.rd_vbr", "tools.ab_stream_format", "entropy.rans",
                  "entropy.rans.coder", "data.autoaugment", "utils.misc",
@@ -50,7 +50,8 @@ def test_port_imports_without_jax():
                  "analysis", "analysis.freq", "analysis.cluster",
                  "analysis.compare", "analysis.cache", "tools.bdrate",
                  "tools.rd_curve", "tools.jpeg_anchor", "tools.profile_codec",
-                 "tools.profile_modules", "tools.microbench", "tools.macs"):
+                 "tools.profile_modules", "tools.microbench", "tools.macs",
+                 "ops.invariant_matmul", "tools.batch_contract"):
         assert f"mlic_tpu_torch.{name}" in names
 
 
@@ -74,6 +75,7 @@ def test_wrappers_take_plain_version_only_on_cpu():
     from mlic_tpu_torch.entropy.parametric import eval_cdf
     from mlic_tpu_torch.ops import _build
     from mlic_tpu_torch.ops.fused_block import fused_block_tail
+    from mlic_tpu_torch.ops.invariant_matmul import conv2d, linear
     from mlic_tpu_torch.ops.select_rows import select_rows
 
     table = torch.randn(5, 6)
@@ -93,10 +95,16 @@ def test_wrappers_take_plain_version_only_on_cpu():
             torch.randn(4, 1, 3, 3), torch.randn(4), torch.randn(6, 4, 1, 1),
             torch.randn(6), torch.rand(6, 6), 1 + torch.rand(6), act="igdn")
         assert out.shape == (1, 6, 5, 7) and out.dtype == dt
+    with torch.no_grad():
+        assert linear(torch.randn(2, 5, 8), torch.randn(3, 8)).shape == (
+            2, 5, 3)
+        assert conv2d(torch.randn(2, 4, 5, 7),
+                      torch.randn(6, 4, 5, 5)).shape == (2, 6, 5, 7)
     assert _build.launch_counts() == before       # no kernel launched
     assert set(before) == {"select_rows", "eval_cdf", "rans_encode_prep",
                            "rans_encode_scan", "rans_encode_compact",
-                           "rans_decode_phase", "fused_block_tail"}
+                           "rans_decode_phase", "fused_block_tail",
+                           "invariant_matmul"}
     with pytest.raises(ValueError, match="CUDA device"):
         fused_block_tail(*(t.to("meta") for t in (
             torch.randn(1, 4, 5, 7), torch.randn(1, 6, 5, 7),
@@ -137,7 +145,7 @@ def test_port_sources_name_no_jax_import():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "mlic_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
-    assert len(files) >= 53
+    assert len(files) >= 55
     for f in files:
         with open(f) as fh:
             assert not pat.search(fh.read()), f
