@@ -40,12 +40,17 @@
    decoder at batch 8 (path 7); K8 (``ops/invariant_matmul``) against its
    plain version (the PyTorch op an image at a time) at every product
    shape of one compress and decompress of S, L and the small decoder, at
-   batches 1, 8 and 128: within 2 gamma_K (|A|.|B| + |bias|) elementwise
-   (K8_BF16_TOL more for bf16 operands), image i's rows at every batch
-   bit-equal to K8 on image i alone, the calls a direction what the
-   configuration gives; timed at batch 128 on S (ms, queued, the one
-   batched PyTorch call, the per-image loop, the bound), summed a
-   direction into the kernels line's K8 row;
+   batches 1, 8 and 128: bit-equal to K8's chain oracle (one thread an
+   output, the plain fmaf loop; ``_build.ORACLES``), within 2 gamma_K
+   (|A|.|B| + |bias|) elementwise (K8_BF16_TOL more for bf16 operands),
+   image i's rows at every batch bit-equal to K8 on image i alone, the
+   calls a direction what the configuration gives, and the same at a few
+   ragged shapes of every path of the kernel (``k8_edge_cases``); timed
+   (ms, queued, the one batched PyTorch call, the per-image loop, the
+   bound) at batches 8 and 128 on S, 32 on L and 8 on the small decoder,
+   summed a direction into the kernels line's K8 row; the
+   ``stream_hashes`` line: sha256 of the streams of path 1's
+   first batch, the batch of 128 and path 6's first L batch;
 6. times more requests whole and, alternately, by the stages that
    ``Codec.compress``/``decompress`` record (median, min, max of each),
    and profiles one more compress and decompress (device busy time, idle
@@ -257,6 +262,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import hashlib
 import json
 import os
 import subprocess
@@ -391,6 +397,7 @@ KERNEL_SYMBOLS = {"select_rows": "select_rows_kernel",
                   "rans_encode_compact": "rans_compact_kernel",
                   "rans_decode_phase": "rans_decode_kernel",
                   "fused_block_tail": "fused_block_tail_",
+                  # K8's three: _kernel, _kernel_halo, _kernel_bytes
                   "invariant_matmul": "invariant_matmul_kernel"}
 
 
@@ -480,6 +487,18 @@ def stream_stats(codec, enc) -> dict:
             n_esc / n_sym, "escapes": n_esc, "symbols": n_sym}
 
 
+def streams_sha256(enc) -> str:
+    """sha256 of a compressed batch's streams (each group's count, each
+    stream's length and bytes, in order)."""
+    h = hashlib.sha256()
+    for group in enc["strings"]:
+        h.update(len(group).to_bytes(8, "little"))
+        for s in group:
+            h.update(len(s).to_bytes(8, "little"))
+            h.update(s)
+    return h.hexdigest()
+
+
 def serve(codec, frames, label: str | None = None, cfg=None):
     """The main path: compress -> decompress per request, bit-exact y_hat
     and x_hat, x_hat finite with the frames' shape; one row a request
@@ -514,6 +533,7 @@ def serve(codec, frames, label: str | None = None, cfg=None):
             raise AssertionError(f"request {r}: bad x_hat {tuple(x_hat.shape)}")
         rows.append({**({"path": label} if label else {}), "request": r,
                      "batch": list(x.shape), **stream_stats(codec, enc),
+                     "streams_sha256": streams_sha256(enc),
                      "encode_ms": (t1 - t0) * 1e3, "decode_ms": (t2 - t1) * 1e3,
                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
                      "launches": launches})
@@ -878,6 +898,24 @@ def sass_step_chains(code: list) -> list:
                     path.pop(d, None)
         chains.append(path.get(x2, []))
     return chains
+
+
+def clocks_under_load(fn, reps: int = 200) -> dict:
+    """The SM clock (MHz) and board power (W) that ``nvidia-smi`` reads
+    while ``reps`` calls of ``fn`` queued back to back run on the card."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(reps):
+        fn()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split(",")
+    busy = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    return {"sm_clock_mhz": float(out[0]), "power_w": float(out[1]),
+            "still_busy": busy}
 
 
 def sm_clock_max_mhz() -> float:
@@ -2284,7 +2322,7 @@ def l_path(frames, pool, k8_all: list, contracts: list) -> dict:
     rows += serve(codec, [big], f"L_batch_{L_BIG_BATCH}", cfg)
     counts = _build.launch_counts()
     contracts.append(batch_contract_phase(codec, big, L_MODEL))
-    k8_all += k8_cases(codec, frames[0], L_MODEL)
+    k8_all += k8_cases(codec, frames[0], L_MODEL, timed_at=(L_BIG_BATCH,))
     if not (in_update["select_rows"] and in_update["eval_cdf"]):
         raise AssertionError(f"path 6: update launched {in_update}")
     missing = [k for k, v in counts.items()
@@ -2343,7 +2381,9 @@ def l_path(frames, pool, k8_all: list, contracts: list) -> dict:
     if bad or res["n_images"] != len(images):
         raise AssertionError(f"path 6 eval: {res}")
     return {"serve": counts, "eval": eval_counts, "g_s_ms": g_s_ms,
-            "kernels": kernel_rows, "state": state}
+            "kernels": kernel_rows, "state": state,
+            "first_batch": {k: rows[0][k] for k in ("bpp",
+                                                    "streams_sha256")}}
 
 
 def decoder_only(frames) -> dict:
@@ -2471,7 +2511,7 @@ def sd_path(frames, l_g_s_ms: float, k8_all: list, contracts: list) -> dict:
     codec.update()
     rows = serve(codec, frames[:SD_BATCHES], "small_decoder", model.cfg)
     contracts.append(batch_contract_phase(codec, frames[0], SD_MODEL))
-    k8_all += k8_cases(codec, frames[0], SD_MODEL)
+    k8_all += k8_cases(codec, frames[0], SD_MODEL, timed_at=(8,))
     enc = codec.compress(frames[0])
     g_s_ms = cuda_ms(lambda: model.synthesize(enc["y_hat"]), 5)
     del enc, codec, model
@@ -4626,10 +4666,68 @@ def _k8_absref(name, args):
                                       args[1].shape[-1] // 2)
 
 
-def k8_case(name, args, label: str, timed: bool) -> dict:
-    """One product against its plain version at K8_BATCHES (image i of
-    batch B bit-equal to K8 on image i alone, every row within the stated
-    bound of the plain version), timed at the largest when ``timed``."""
+_K8_ORACLE = {}
+
+
+def k8_oracle():
+    """K8's chain oracle (``_build.ORACLES``: one thread an output, the
+    plain fmaf loop, not counted on the device) as ``run(fn, args)``: the
+    product ``fn`` of ``ops/invariant_matmul`` through the same wrapper and
+    ``Problem``, launched on the oracle's entry point."""
+    from mlic_tpu_torch.ops import _build
+    from mlic_tpu_torch.ops import invariant_matmul as im
+    if "fn" not in _K8_ORACLE:
+        _K8_ORACLE["fn"] = _build.KERNELS["invariant_matmul"].function(
+            *_build.ORACLES["invariant_matmul"])
+    entry = _K8_ORACLE["fn"]
+
+    class Oracle:
+        def launch(self, *a):
+            rc = entry(*a)
+            if rc != 0:
+                raise RuntimeError(f"K8's oracle failed to launch "
+                                   f"(cudaError {rc})")
+
+    def run(fn, args):
+        old = im.KERNEL, im.ROUTE
+        im.KERNEL, im.ROUTE = Oracle(), "kernel"
+        try:
+            return fn(*args)
+        finally:
+            im.KERNEL, im.ROUTE = old
+    return run
+
+
+def k8_timed(name, fn, xb) -> dict:
+    """K8's times on ``xb`` (back to back, queued), its bound, the one
+    batched PyTorch call and the per-image loop; at BIG_BATCH, for a
+    product bound by operations, the SM clock and power under its load."""
+    from mlic_tpu_torch.ops import invariant_matmul as im
+    sb = _k8_shape(name, xb)
+    bms, by = bound(sb["bytes"], sb["ops"])
+    row = {"batch": xb[0].shape[0], "ms": cuda_ms(lambda: fn(*xb), 5),
+           "queued_ms": queued_ms(lambda: fn(*xb), 5), "bound_ms": bms,
+           "bound_by": by, "bound_parts_ms": [sb["bytes"] / HBM_BPS * 1e3,
+                                              sb["ops"] / F32_OPS * 1e3]}
+    old = im.ROUTE
+    try:
+        im.ROUTE = "batched"
+        row["library_ms"] = cuda_ms(lambda: fn(*xb), 5)
+        im.ROUTE = "plain"
+        row["plain_ms"] = cuda_ms(lambda: fn(*xb), 2)
+    finally:
+        im.ROUTE = old
+    row["share_of_bound"] = bms / row["queued_ms"]
+    if row["batch"] == BIG_BATCH and by == "operations":
+        row["under_load"] = clocks_under_load(lambda: fn(*xb))
+    return row
+
+
+def k8_case(name, args, label: str, oracle, timed_at=()) -> dict:
+    """One product at K8_BATCHES: bit-equal to the chain oracle (``oracle``
+    from ``k8_oracle``), image i of batch B bit-equal to K8 on image i
+    alone, every row within the stated bound of the plain version; timed
+    at each batch of ``timed_at`` (``at_batch_<B>``, ``k8_timed``)."""
     import torch
 
     from mlic_tpu_torch.ops import invariant_matmul as im
@@ -4649,10 +4747,11 @@ def k8_case(name, args, label: str, timed: bool) -> dict:
            "shape_a_image": list(args[0].shape[1:]),
            "groups_per_image": shape["groups"] // n8, "mnk": shape["mnk"],
            "max_abs_err": 0.0, "max_err_over_bound": 0.0,
-           "rows_equal_batch_1": True}
+           "rows_equal_batch_1": True, "oracle_equal": True}
     for b in K8_BATCHES:
         xb = _k8_batch(name, x8, b)
         got = fn(*xb)
+        row["oracle_equal"] &= torch.equal(got, oracle(fn, xb))
         old, im.ROUTE = im.ROUTE, "plain"
         try:
             ref = fn(*xb)
@@ -4668,38 +4767,25 @@ def k8_case(name, args, label: str, timed: bool) -> dict:
         same = all(torch.equal(got[i], one[i % n8][0]) for i in range(b))
         row["rows_equal_batch_1"] &= same
         del got, ref
-    if timed:
-        xb = _k8_batch(name, x8, K8_BATCHES[-1])
-        sb = _k8_shape(name, xb)
-        bms, by = bound(sb["bytes"], sb["ops"])
-        old = im.ROUTE
-        try:
-            row.update(batch=K8_BATCHES[-1], ms=cuda_ms(lambda: fn(*xb), 5),
-                       queued_ms=queued_ms(lambda: fn(*xb), 5),
-                       bound_ms=bms, bound_by=by,
-                       bound_parts_ms=[sb["bytes"] / HBM_BPS * 1e3,
-                                       sb["ops"] / F32_OPS * 1e3])
-            im.ROUTE = "batched"
-            row["library_ms"] = cuda_ms(lambda: fn(*xb), 5)
-            im.ROUTE = "plain"
-            row["plain_ms"] = cuda_ms(lambda: fn(*xb), 2)
-        finally:
-            im.ROUTE = old
-    if row["max_err_over_bound"] > 1.0 or not row["rows_equal_batch_1"]:
+    for b in timed_at:
+        row[f"at_batch_{b}"] = k8_timed(name, fn, _k8_batch(name, x8, b))
+    if row["max_err_over_bound"] > 1.0 or not row["rows_equal_batch_1"] \
+            or not row["oracle_equal"]:
         raise AssertionError(f"K8 {label} {name}: {row}")
     return row
 
 
-def k8_cases(codec, x, label: str, timed: bool = False) -> list:
-    """K8 against its plain version at every product shape of one compress
-    and one decompress of ``x`` by ``codec`` (``k8_case`` a shape), each
-    case with the calls it stands for in each direction."""
+def k8_cases(codec, x, label: str, timed_at=()) -> list:
+    """K8 against its chain oracle and its plain version at every product
+    shape of one compress and one decompress of ``x`` by ``codec``
+    (``k8_case`` a shape, timed at the batches of ``timed_at``), each case
+    with the calls it stands for in each direction."""
     import torch
     with torch.no_grad():
-        return _k8_cases(codec, x, label, timed)
+        return _k8_cases(codec, x, label, timed_at, k8_oracle())
 
 
-def _k8_cases(codec, x, label: str, timed: bool) -> list:
+def _k8_cases(codec, x, label: str, timed_at, oracle) -> list:
     calls = capture_products(codec, x)
     cases = {}
     for name, args, kwargs, direction in calls:
@@ -4711,7 +4797,7 @@ def _k8_cases(codec, x, label: str, timed: bool) -> list:
         cases[key][2][direction] += 1
     rows = []
     for name, args, per in cases.values():
-        row = k8_case(name, args, label, timed)
+        row = k8_case(name, args, label, oracle, timed_at)
         row["calls"] = per
         rows.append(row)
     want = {"compress": k8_per_direction(codec.model.cfg)
@@ -4726,42 +4812,106 @@ def _k8_cases(codec, x, label: str, timed: bool) -> list:
     return rows
 
 
+def k8_edge_cases() -> list:
+    """K8 against its chain oracle and its plain version at ragged shapes
+    that no model gives it (``k8_case`` each, seeded operands): the byte
+    path at a pixel count that is not a multiple of 8, over a strided view,
+    f32 and bf16; the halo gather at image sizes that are no multiple of
+    its tile (f32 5x5 at 64 and 96 outputs, over a channels-last view; bf16
+    3x3 at strides 1 and 2); the tiled f32 gather at 3x3 over an odd
+    channel count (a half K tile) with 40 outputs, at 5x5 and stride 2, and
+    a 1x1 of stride 2 over 20 channels; a 1x1 read in place (16-byte
+    copies along the pixels) over 108 pixels; linears of K 17 and N 24 or
+    64 (4-byte copies with checks), and of whole tiles at N 96 (64 and 128
+    rows: the copies that step by a constant);
+    the attention contractions at odd widths (16-byte copies) and over
+    views that start one element in (4-byte copies)."""
+    import torch
+
+    from mlic_tpu_torch.device import configure_determinism
+    configure_determinism()             # the plain version without TF32
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def r(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+    bf = torch.bfloat16
+    img = r(2, 3, 14, 19)
+    imb = r(2, 3, 14, 19, dtype=bf)
+    cases = [
+        ("conv2d", (img[..., ::2, ::2], r(5, 3, 1, 1), r(5))),
+        ("conv2d", (imb[..., ::2, ::2], r(5, 3, 1, 1, dtype=bf),
+                    r(5, dtype=bf))),
+        ("conv2d", (r(2, 5, 9, 11), r(40, 5, 3, 3), r(40))),
+        ("conv2d", (r(2, 6, 9, 11, dtype=bf), r(64, 6, 3, 3, dtype=bf),
+                    None)),
+        ("conv2d", (r(2, 4, 13, 10, dtype=bf), r(64, 4, 3, 3, dtype=bf),
+                    r(64, dtype=bf), 2)),
+        ("conv2d", (r(2, 3, 13, 21), r(96, 3, 5, 5), r(96))),
+        ("conv2d", (r(2, 7, 13, 10), r(64, 7, 5, 5), r(64), 2)),
+        ("conv2d", (r(2, 20, 9, 12), r(96, 20, 1, 1), None, 2)),
+        ("conv2d", (r(2, 20, 9, 12), r(96, 20, 1, 1), r(96))),
+        ("conv2d", (r(2, 9, 11, 6).permute(0, 3, 1, 2), r(64, 6, 5, 5),
+                    r(64))),
+        ("linear", (r(2, 33, 17), r(24, 17), r(24))),
+        ("linear", (r(2, 33, 17), r(64, 17), r(64))),
+        ("linear", (r(2, 64, 32), r(96, 32), None)),
+        ("linear", (r(8, 384, 16), r(96, 16), r(96))),
+        ("kt_v", (r(2, 37, 3, 12), r(2, 37, 3, 20))),
+        ("ctx_q", (r(2, 3, 12, 20), r(2, 37, 3, 12))),
+        ("kt_v", (r(2, 37, 3, 13)[..., 1:], r(2, 37, 3, 13)[..., 1:])),
+    ]
+    oracle = k8_oracle()
+    rows = []
+    with torch.no_grad():
+        for name, args in cases:
+            rows.append(k8_case(name, args, "edge", oracle))
+    print(json.dumps({"k8_edge_cases": rows}), flush=True)
+    return rows
+
+
 def k8_row(cases: list, counts: dict) -> dict:
     """K8's row of the kernels line: MLICPP_S's products at batch 128
     summed over the calls of one direction (decompress; compress adds the
-    analysis convolutions), the errors over every case of every model."""
-    timed = [r for r in cases if "ms" in r]
-
-    def total(key, direction):
-        return sum(r[key] * r["calls"][direction] for r in timed)
-    parts = [sum(r["bound_parts_ms"][i] * r["calls"]["decompress"]
-                 for r in timed) for i in (0, 1)]
-    directions = {d: {k: total(k, d) for k in (
-        "ms", "queued_ms", "plain_ms", "library_ms", "bound_ms")}
-        for d in ("compress", "decompress")}
-    for d in directions:
-        directions[d]["launches"] = sum(r["calls"][d] for r in timed)
+    analysis convolutions), the same sums for every model at every batch
+    it was timed at (``per_direction_<model>_<batch>``), the errors over
+    every case of every model."""
+    def directions(rows, key):
+        out = {d: {k: sum(r[key][k] * r["calls"][d] for r in rows) for k in (
+            "ms", "queued_ms", "plain_ms", "library_ms", "bound_ms")}
+            for d in ("compress", "decompress")}
+        for d in out:
+            out[d]["launches"] = sum(r["calls"][d] for r in rows)
+        return out
+    sums = {}
+    for model in dict.fromkeys(r["model"] for r in cases):
+        rows = [r for r in cases if r["model"] == model]
+        for key in (k for k in rows[0] if k.startswith("at_batch_")):
+            sums[f"{model}_{key[3:]}"] = directions(rows, key)
+    s128 = [r for r in cases if r["model"] == MODEL]
+    key = f"at_batch_{BIG_BATCH}"
+    parts = [sum(r[key]["bound_parts_ms"][i] * r["calls"]["decompress"]
+                 for r in s128) for i in (0, 1)]
+    dec = sums[f"{MODEL}_batch_{BIG_BATCH}"]["decompress"]
     return {"name": "invariant_matmul", "route": "cuda", "source": K8_SOURCE,
             "replaces": K8_REPLACES, "launches": counts["invariant_matmul"],
             "status": "within bound, batch-invariant",
             "max_abs_err": max(r["max_abs_err"] for r in cases),
             "max_err_over_bound": max(r["max_err_over_bound"]
                                       for r in cases),
-            "ms": directions["decompress"]["ms"],
-            "queued_ms": directions["decompress"]["queued_ms"],
-            "plain_ms": directions["decompress"]["plain_ms"],
-            "library_ms": directions["decompress"]["library_ms"],
-            "bound_ms": directions["decompress"]["bound_ms"],
+            "oracle_equal": all(r["oracle_equal"] for r in cases),
+            **{k: dec[k] for k in ("ms", "queued_ms", "plain_ms",
+                                   "library_ms", "bound_ms")},
             "bound_by": "bytes" if parts[0] >= parts[1] else "operations",
-            "batch": K8_BATCHES[-1], "model": MODEL,
-            "per_direction": directions, "cases_checked": len(cases)}
+            "batch": BIG_BATCH, "model": MODEL,
+            "per_direction": sums, "cases_checked": len(cases)}
 
 
 def big_request(codec, x) -> dict:
     """The main path's batch of 128 timed: two more whole requests (after
     ``serve``'s), a profiled compress and decompress (device busy ms, idle
-    share against the whole medians), peak memory, and the device's own
-    launch counts of one compress held equal to the host's."""
+    share against the whole medians, K8's ms and launches, the launches
+    held to what the configuration gives), peak memory, and the device's
+    own launch counts of one compress held equal to the host's."""
     import torch
     whole = {"compress": [], "decompress": []}
     torch.cuda.reset_peak_memory_stats()
@@ -4778,10 +4928,18 @@ def big_request(codec, x) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     wall = {k: float(np.median(v)) for k, v in whole.items()}
     prof = profile_request(codec, x, wall, label="profile_batch_128")
+    cfg = codec.model.cfg
+    want = {"compress": k8_per_direction(cfg) + k8_in_analysis(cfg),
+            "decompress": k8_per_direction(cfg)}
+    k8 = {p: prof[p]["port_kernels_ms_launches"]["invariant_matmul"]
+          for p in want}
+    if {p: k8[p][1] for p in want} != want:
+        raise AssertionError(f"batch 128: the profile finds K8's launches "
+                             f"{k8}, the configuration gives {want}")
     _, host = device_proof(lambda: codec.compress(x), "batch_128 compress",
                            {"invariant_matmul": 1})
     row = {"batch": list(x.shape), "whole_ms": whole, "peak_mem_gib": peak,
-           "launches_compress": host,
+           "launches_compress": host, "k8_profiler_ms_launches": k8,
            "kernel_launches": {p: prof[p]["kernel_launches"]
                                for p in ("compress", "decompress")},
            "idle_share": {p: prof[p]["idle_share"]
@@ -4866,8 +5024,9 @@ def main(argv=None) -> int:
         raise AssertionError("Codec.update took a fallback on the main "
                              "path: the parametric table failed a check")
     in_update = _build.launch_counts()
-    serve(codec, frames, cfg=model.cfg)      # each request's launches exact
-    serve(codec, [x128], f"batch_{BIG_BATCH}", model.cfg)
+    hashed = {"path_1_first_batch": serve(codec, frames, cfg=model.cfg)[0]}
+    hashed[f"batch_{BIG_BATCH}"] = serve(codec, [x128], f"batch_{BIG_BATCH}",
+                                         model.cfg)[0]
     counts = _build.launch_counts()
     per_batch = {k: (v - in_update[k]) / (N_REQUESTS + 1)
                  for k, v in counts.items()}
@@ -4890,7 +5049,8 @@ def main(argv=None) -> int:
     fused_against_unfused(state, frames[0])
     kernels = check_kernels(codec, counts)
     kernels.append(check_fused_block(eval_counts["fused_block_tail"]))
-    k8_all = k8_cases(codec, frames[0], MODEL, timed=True)
+    k8_all = k8_cases(codec, frames[0], MODEL, timed_at=(8, BIG_BATCH))
+    k8_edge_cases()
     check_decode_lanes(codec)
     check_lane_widths(model, frames)
     check_small_reference(state)
@@ -4911,6 +5071,10 @@ def main(argv=None) -> int:
     sd_train_counts = sd_freeze_path()
     scale_counts = scale_out_path(state, model, codec, frames)
     kernels.append(k8_row(k8_all, counts))
+    hashed["L_first_batch"] = l_counts["first_batch"]
+    print(json.dumps({"stream_hashes": {
+        k: {f: r[f] for f in ("bpp", "streams_sha256")}
+        for k, r in hashed.items()}}), flush=True)
     print(json.dumps({"batch_contracts": [
         {k: c[k] for k in ("model", "batch", "y_bytes_differing",
                            "z_bytes_differing", "broken")}

@@ -141,6 +141,12 @@ KERNELS = {k.name: k for k in (
            "invariant_matmul_launch", [_P, _P]),
 )}
 
+# Second C entry points that no module of the package calls: K8's chain
+# oracle (one thread an output, the plain fmaf loop over k = 0 .. K-1, the
+# bias after; not counted on the device), which chip_smoke.py holds K8 to
+# bit for bit.  {kernel: (symbol, argtypes)}, for ``Kernel.function``.
+ORACLES = {"invariant_matmul": ("invariant_matmul_oracle_launch", [_P, _P])}
+
 
 def build(kernels=None) -> dict:
     """Compile the kernels whose libraries are missing, one ``nvcc`` per

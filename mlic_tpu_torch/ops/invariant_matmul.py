@@ -7,9 +7,9 @@ and must see the same floats.  On the card, cuBLAS and cuDNN choose their
 kernel, and with it the order of a long reduction, by the problem's size,
 so a product whose rows span the batch can round an image otherwise at
 another batch size.  K8 (``csrc/invariant_matmul.cu``) computes each
-output as one f32 FFMA chain in a fixed order, with a launch configuration
-that depends on one problem's shape only, so an image's rows are the same
-floats at every batch, in one launch a product.
+output as one f32 FFMA chain over k = 0 .. K-1 from 0, the bias after, so
+an image's rows are the same floats at every batch and under every tile
+the launch picks, in one launch a product.
 
 The products (JAX counterparts in ``mlic_tpu/models/context.py``):
 ``linear`` the local context's window fusion (:172), ``kt_v`` and
@@ -32,9 +32,11 @@ count, ``tools.macs``)
 ================================================  ==========================
 
 K8 never gives way to the plain version: a shape or type it does not
-take, a failed build or a failed launch raises.  ``ROUTE`` other than
-"auto" forces one route ("kernel", "batched" or "plain") for every call:
-the smoke run sets it to time and check K8 against the other two.
+take (its C launch function's ``valid``: a convolution window other than
+1, 3 or 5, say, or bfloat16 outside the analysis convolutions), a failed
+build or a failed launch raises.  ``ROUTE`` other than "auto" forces one route
+("kernel", "batched" or "plain") for every call: the smoke run sets it to
+time and check K8 against the other two.
 """
 
 from __future__ import annotations
@@ -162,19 +164,21 @@ def kt_v(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def ctx_q(ctx: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """``einsum("bhde,bnhd->bnhe", ctx, q)``: B x heads problems of n x hd
-    x hd in one launch."""
+    x hd in one launch.  K8's result is a [B, n, heads, hd] view of
+    channel-first memory [B, heads, hd, n], so the 5x5 reprojection that
+    follows the attention reads rows of pixels, with no copy between."""
     def kernel():
         b, n, h, d = q.shape
+        e = ctx.shape[3]
         if ctx.shape[:3] != (b, h, d):
             raise ValueError(f"ctx_q: ctx {tuple(ctx.shape)}, q "
                              f"{tuple(q.shape)}")
-        out = torch.empty((b, n, h, ctx.shape[3]), dtype=q.dtype,
-                          device=q.device)
+        out = torch.empty((b, h, e, n), dtype=q.dtype, device=q.device)
         qs, os_ = q.stride(), out.stride()
-        _launch(q, ctx, None, out, (b, h), (n, ctx.shape[3], d),
+        _launch(q, ctx, None, out, (b, h), (n, e, d),
                 (qs[0], qs[2], qs[1], qs[3]), ctx.stride(),
-                (os_[0], os_[2], os_[1], os_[3]))
-        return out
+                (os_[0], os_[1], os_[3], os_[2]))
+        return out.permute(0, 3, 1, 2)
     return _dispatch(lambda c1, q1: torch.einsum("bhde,bnhd->bnhe", c1, q1),
                      (ctx, q), kernel)
 
@@ -182,9 +186,10 @@ def ctx_q(ctx: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 def conv2d(x: torch.Tensor, weight: torch.Tensor,
            bias: torch.Tensor | None = None, stride: int = 1) -> torch.Tensor:
     """``F.conv2d(x, weight, bias, stride, k // 2)``, a "SAME" convolution
-    of odd window k over x [B, C, H, W] (any strides), weight [N, C, k, k]:
-    B problems of (output pixels) x N x C*k*k in one launch; A is the
-    window gather of x (a 1x1 window of stride 1 reads x in place)."""
+    of odd window k over x [B, C, H, W] (any strides), weight
+    [N, C, k, k]: B problems of (output pixels) x N x C*k*k in one launch;
+    A is the window gather of x (a 1x1 window of stride 1 reads x in
+    place)."""
     win = weight.shape[-1]
 
     def op(x1):
@@ -193,9 +198,9 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
     def kernel():
         b, c, hh, ww = x.shape
         n = weight.shape[0]
-        if weight.shape != (n, c, win, win) or win % 2 == 0:
+        if weight.shape != (n, c, win, win):
             raise ValueError(f"conv2d: weight {tuple(weight.shape)} for "
-                             f"{c} channels (odd square windows only)")
+                             f"{c} channels (square windows only)")
         oh, ow = (hh - 1) // stride + 1, (ww - 1) // stride + 1
         w2 = weight.reshape(n, -1)
         out = torch.empty((b, n, oh, ow), dtype=x.dtype, device=x.device)

@@ -147,6 +147,59 @@ def test_kernel_source_is_its_own_cuda():
     assert k8.source == "invariant_matmul.cu" and k8.symbol in code
 
 
+def test_oracle_is_declared_and_only_the_smoke_run_calls_it():
+    """K8's chain oracle is a second C entry point of its source, declared
+    in ``_build.ORACLES`` and not counted on the device; no module of the
+    package but ``_build`` names it, and chip_smoke.py holds K8 to it."""
+    sym, argtypes = _build.ORACLES["invariant_matmul"]
+    assert argtypes == _build.KERNELS["invariant_matmul"].argtypes
+    src = (_build.CSRC / "invariant_matmul.cu").read_text()
+    code = " ".join(" ".join(line.split("//")[0] for line in
+                             src.splitlines()).split())
+    assert f'extern "C" int {sym}(const Problem* p, void* stream)' in code
+    body = code[code.index("__global__ void oracle_kernel("):]
+    body = body[:body.index("} } ")]
+    assert "fmaf" in body and "count_device_launch" not in body
+    pkg = _build.CSRC.parent
+    for f in pkg.rglob("*.py"):
+        if f != pkg / "ops" / "_build.py":
+            text = f.read_text()
+            assert sym not in text and "ORACLES" not in text, f
+    smoke = (pkg.parent / "chip_smoke.py").read_text()
+    assert "_build.ORACLES[" in smoke and "def k8_oracle(" in smoke
+
+
+@pytest.mark.parametrize("win", [2, 7])
+def test_kernel_route_refuses_other_windows(win):
+    """K8's gather takes windows of 1, 3 and 5 (a K tile of whole
+    channels), a rule kept in one place, the C launch function's
+    ``valid`` (a launch it refuses raises in ``Kernel.launch``); asked for
+    another window, the kernel route raises, on any device, instead of
+    taking the plain version."""
+    x, w = _t(1, 4, 6, 6), _t(3, 4, win, win)
+    old, im.ROUTE = im.ROUTE, "kernel"
+    try:
+        with torch.no_grad(), pytest.raises(ValueError):
+            im.conv2d(x, w)
+    finally:
+        im.ROUTE = old
+    src = (_build.CSRC / "invariant_matmul.cu").read_text()
+    rule = src[src.index("bool valid(const Problem* p)"):]
+    rule = rule[:rule.index("\n}\n")]
+    assert "(w == 1 || w == 3 || w == 5)" in rule and f"w == {win}" not in rule
+    assert not hasattr(im, "WINDOWS")
+
+
+def test_stream_hash_is_of_every_stream_in_order():
+    import chip_smoke
+    h = chip_smoke.streams_sha256
+    a = {"strings": [[b"ab", b"c"], []]}
+    assert h(a) == h({"strings": [[b"ab", b"c"], []]})
+    assert h(a) != h({"strings": [[b"a", b"bc"], []]})
+    assert h(a) != h({"strings": [[b"c", b"ab"], []]})
+    assert h(a) != h({"strings": [[b"ab"], [b"c"]]})
+
+
 def test_problem_struct_matches_the_kernel_source():
     """``Problem``'s fields are those of the C struct, in its order, and
     its size is the C layout's."""
@@ -250,3 +303,27 @@ def test_coding_path_products_all_dispatch(tiny, small_decoder, monkeypatch):
         + chip_smoke.k8_in_analysis(cfg)
     assert calls["n"] - n_compress == chip_smoke.k8_per_direction(cfg)
     assert chip_smoke.request_launches(cfg)["invariant_matmul"] == calls["n"]
+
+
+def test_sass_census_finds_the_hot_loop():
+    """``tools.sass_census`` reads a ``cuobjdump -sass`` listing: a
+    function's instruction count, and for its hot loop (the backward branch
+    whose body holds the most FFMAs) the body's instructions, FFMAs and
+    opcodes, shared loads by width."""
+    from mlic_tpu_torch.tools.sass_census import census
+
+    def fn(name, body):
+        return f"\n\tFunction : {name}\n" + "\n".join(
+            f"        /*{a:04x}*/                   {ins} ;" for a, ins in
+            enumerate(body)) + "\n"
+    body = ["MOV R1, c[0x0][0x28]", "LDS.128 R4, [R2]", "FFMA R8, R4, R5, R8",
+            "FFMA R9, R4, R6, R9", "@P0 BRA 0x1", "LDS R3, [R2]",
+            "FFMA R9, R3, R3, R9", "@!P1 BRA 0x5", "EXIT"]
+    listing = "header\n" + fn("_Z1av", body) + fn("_Z1bv", ["EXIT"])
+    rows = census(listing)
+    assert [r["function"] for r in rows] == ["_Z1av", "_Z1bv"]
+    a = rows[0]
+    assert a["instructions"] == 9 and a["loop_instructions"] == 4
+    assert a["loop_ffma"] == 2 and a["loop_ffma_share"] == 0.5
+    assert dict(a["loop_top"]) == {"FFMA": 2, "LDS.128": 1, "BRA": 1}
+    assert rows[1] == {"function": "_Z1bv", "instructions": 1}
