@@ -241,7 +241,25 @@
    plain version, timed: the kernels line's ``lanes`` and ``lanes_rows``
    rows).  Every kernel's device-side launch count over the path must
    equal the host's;
-22. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+22. path 14, the published MLIC++ architecture (the ``published_path``
+   line; run after path 7's frozen-encoder training): dense MLICPP_S in
+   bf16 on seeded weights, one request of a batch of 8, bit-exact with the
+   launches its configuration gives (g_a's last stage and h_a's 3x3
+   convolutions at N 96 and g_a.out at N 160 through K8's bf16 halo path;
+   cuDNN ordered the last stage's sums by the batch), the batch contract
+   at 8 and K8 at its product shapes at batches 1 and 8; then dense
+   MLICPP_L (N 192, M 320, 10 slices) on seeded weights written as the
+   reference writes a checkpoint (``module.`` prefixes, compressai's CDF buffers),
+   converted by ``python -m
+   mlic_tpu_torch.tools.convert_reference_checkpoint --dense --strict`` in
+   a subprocess and loaded strictly, bit-equal to the weights written;
+   ``Codec.update`` at 512 lanes and two requests of batches of 8, each
+   bit-exact with its configuration's launches (K8 2 x 64 + 11), a request
+   whose device-side launch counts equal the host's, a profile (device
+   busy ms, idle share), the batch contract at 8 and K8 at every product
+   shape at batches 1 and 8 against its chain oracle (timed at 8; the
+   ``k8_cases`` lines of ``MLICPP_S_dense`` and ``MLICPP_L_dense``);
+23. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 
 With ``--cards N`` on a host of N cards it runs path 11's scale-out
@@ -4574,11 +4592,12 @@ def k8_per_direction(cfg) -> int:
 def k8_in_analysis(cfg) -> int:
     """K8's launches in g_a and h_a (``models/transforms.py``): the 1x1
     convolutions over the image's channels (two in a depthwise encoder,
-    the skip alone in a dense one), and in a dense encoder g_a's last
-    convolution and h_a's five."""
+    the skip alone in a dense one), and in a dense encoder the four 3x3
+    convolutions of g_a's last stage, g_a's last convolution and h_a's
+    five."""
     if cfg.depthwise and not cfg.small_decoder:
         return 2
-    return 1 + 1 + 5
+    return 1 + 4 + 1 + 5
 
 
 def capture_products(codec, x) -> list:
@@ -4723,11 +4742,13 @@ def k8_timed(name, fn, xb) -> dict:
     return row
 
 
-def k8_case(name, args, label: str, oracle, timed_at=()) -> dict:
-    """One product at K8_BATCHES: bit-equal to the chain oracle (``oracle``
-    from ``k8_oracle``), image i of batch B bit-equal to K8 on image i
-    alone, every row within the stated bound of the plain version; timed
-    at each batch of ``timed_at`` (``at_batch_<B>``, ``k8_timed``)."""
+def k8_case(name, args, label: str, oracle, timed_at=(),
+            batches=K8_BATCHES) -> dict:
+    """One product at each batch of ``batches``: bit-equal to the chain
+    oracle (``oracle`` from ``k8_oracle``), image i of batch B bit-equal to
+    K8 on image i alone, every row within the stated bound of the plain
+    version; timed at each batch of ``timed_at`` (``at_batch_<B>``,
+    ``k8_timed``)."""
     import torch
 
     from mlic_tpu_torch.ops import invariant_matmul as im
@@ -4748,7 +4769,7 @@ def k8_case(name, args, label: str, oracle, timed_at=()) -> dict:
            "groups_per_image": shape["groups"] // n8, "mnk": shape["mnk"],
            "max_abs_err": 0.0, "max_err_over_bound": 0.0,
            "rows_equal_batch_1": True, "oracle_equal": True}
-    for b in K8_BATCHES:
+    for b in batches:
         xb = _k8_batch(name, x8, b)
         got = fn(*xb)
         row["oracle_equal"] &= torch.equal(got, oracle(fn, xb))
@@ -4775,17 +4796,18 @@ def k8_case(name, args, label: str, oracle, timed_at=()) -> dict:
     return row
 
 
-def k8_cases(codec, x, label: str, timed_at=()) -> list:
+def k8_cases(codec, x, label: str, timed_at=(), batches=K8_BATCHES) -> list:
     """K8 against its chain oracle and its plain version at every product
     shape of one compress and one decompress of ``x`` by ``codec``
-    (``k8_case`` a shape, timed at the batches of ``timed_at``), each case
-    with the calls it stands for in each direction."""
+    (``k8_case`` a shape at ``batches``, timed at the batches of
+    ``timed_at``), each case with the calls it stands for in each
+    direction."""
     import torch
     with torch.no_grad():
-        return _k8_cases(codec, x, label, timed_at, k8_oracle())
+        return _k8_cases(codec, x, label, timed_at, k8_oracle(), batches)
 
 
-def _k8_cases(codec, x, label: str, timed_at, oracle) -> list:
+def _k8_cases(codec, x, label: str, timed_at, oracle, batches) -> list:
     calls = capture_products(codec, x)
     cases = {}
     for name, args, kwargs, direction in calls:
@@ -4797,7 +4819,7 @@ def _k8_cases(codec, x, label: str, timed_at, oracle) -> list:
         cases[key][2][direction] += 1
     rows = []
     for name, args, per in cases.values():
-        row = k8_case(name, args, label, oracle, timed_at)
+        row = k8_case(name, args, label, oracle, timed_at, batches)
         row["calls"] = per
         rows.append(row)
     want = {"compress": k8_per_direction(codec.model.cfg)
@@ -4817,8 +4839,12 @@ def k8_edge_cases() -> list:
     that no model gives it (``k8_case`` each, seeded operands): the byte
     path at a pixel count that is not a multiple of 8, over a strided view,
     f32 and bf16; the halo gather at image sizes that are no multiple of
-    its tile (f32 5x5 at 64 and 96 outputs, over a channels-last view; bf16
-    3x3 at strides 1 and 2); the tiled f32 gather at 3x3 over an odd
+    its tile (f32 5x5 at 32, 64 and 96 outputs, over a channels-last view;
+    bf16 3x3 at strides 1 and 2, at 64 outputs and at the widths of the
+    dense encoders that no multiple of 64 divides: 32 (MLICPP_TINY's h_a),
+    96 (MLICPP_S's h_a) and 160 (its g_a.out), at image sizes whose
+    batch of 128 takes the tall tiles); the tiled f32 gather at 3x3 over
+    an odd
     channel count (a half K tile) with 40 outputs, at 5x5 and stride 2, and
     a 1x1 of stride 2 over 20 channels; a 1x1 read in place (16-byte
     copies along the pixels) over 108 pixels; linears of K 17 and N 24 or
@@ -4847,6 +4873,19 @@ def k8_edge_cases() -> list:
         ("conv2d", (r(2, 4, 13, 10, dtype=bf), r(64, 4, 3, 3, dtype=bf),
                     r(64, dtype=bf), 2)),
         ("conv2d", (r(2, 3, 13, 21), r(96, 3, 5, 5), r(96))),
+        ("conv2d", (r(2, 3, 13, 21), r(32, 3, 5, 5), r(32))),
+        ("conv2d", (r(2, 6, 13, 21, dtype=bf), r(32, 6, 3, 3, dtype=bf),
+                    r(32, dtype=bf))),
+        ("conv2d", (r(2, 6, 17, 35, dtype=bf), r(32, 6, 3, 3, dtype=bf),
+                    None, 2)),
+        ("conv2d", (r(2, 4, 13, 21, dtype=bf), r(96, 4, 3, 3, dtype=bf),
+                    r(96, dtype=bf))),
+        ("conv2d", (r(2, 4, 17, 35, dtype=bf), r(96, 4, 3, 3, dtype=bf),
+                    r(96, dtype=bf), 2)),
+        ("conv2d", (r(2, 8, 11, 19, dtype=bf), r(160, 8, 3, 3, dtype=bf),
+                    None)),
+        ("conv2d", (r(2, 8, 17, 35, dtype=bf), r(160, 8, 3, 3, dtype=bf),
+                    r(160, dtype=bf), 2)),
         ("conv2d", (r(2, 7, 13, 10), r(64, 7, 5, 5), r(64), 2)),
         ("conv2d", (r(2, 20, 9, 12), r(96, 20, 1, 1), None, 2)),
         ("conv2d", (r(2, 20, 9, 12), r(96, 20, 1, 1), r(96))),
@@ -4966,6 +5005,170 @@ def batch_contract_phase(codec, frames, label: str) -> dict:
     return res
 
 
+# Path 14: the published MLIC++ architecture, dense MLICPP_L (N 192, M 320,
+# 10 slices; the reference's converter: "published MLIC++ weights use dense
+# convs"), from a checkpoint in the reference's format; and dense MLICPP_S,
+# whose h_a (N 96) and g_a.out (M 160) K8 takes on its bf16 halo path.  No
+# trained published weights are in the repository: both run seeded weights,
+# so their rates test plumbing only.
+PUBLISHED_MODEL = "MLICPP_L"
+PUBLISHED_LABEL = "MLICPP_L_dense"
+PUBLISHED_REQUESTS = 2
+DENSE_S_LABEL = "MLICPP_S_dense"
+K8_PUBLISHED_BATCHES = (1, 8)
+
+
+def reference_checkpoint(model, path: str) -> dict:
+    """``model``'s seeded weights (``init_params``) written as the
+    reference writes a checkpoint: ``{"epoch", "state_dict"}``, the names
+    under ``module.`` (``torch.nn.DataParallel``'s) and compressai's
+    buffers beside the parameters (the CDF tables, the scale table, the
+    Swin index), which the converter skips.  Returns the port's
+    state_dict the file was made from."""
+    import torch
+
+    from mlic_tpu_torch.tools.convert_reference_checkpoint import \
+        to_reference
+    from mlic_tpu_torch.weights import init_params
+    cfg = model.cfg
+    want = init_params(model, torch.Generator().manual_seed(SEED))
+    sd = to_reference(want, cfg)
+    i32 = torch.int32
+    for part, rows in (("entropy_bottleneck", cfg.N),
+                       ("gaussian_conditional", 64)):
+        sd[f"{part}._quantized_cdf"] = torch.zeros(rows, 64, dtype=i32)
+        sd[f"{part}._offset"] = torch.zeros(rows, dtype=i32)
+        sd[f"{part}._cdf_length"] = torch.zeros(rows, dtype=i32)
+    sd["gaussian_conditional.scale_table"] = torch.exp(
+        torch.linspace(np.log(0.11), np.log(256.0), 64))
+    win = cfg.context_window ** 2
+    for i in range(cfg.slice_num):
+        sd[f"local_context.{i}.relative_position_index"] = torch.zeros(
+            win, win, dtype=torch.long)
+    torch.save({"epoch": 0, "state_dict": {f"module.{k}": v
+                                           for k, v in sd.items()}}, path)
+    return want
+
+
+def dense_s_request(frames, k8_all: list, contracts: list) -> dict:
+    """Dense MLICPP_S in bf16 on seeded weights at 512 lanes: one request
+    of a batch of 8, bit-exact with the launches its configuration gives
+    (K8 11 times in g_a and h_a: g_a's last stage and h_a's five at N 96
+    and g_a.out at M 160 on the bf16 halo path); the batch contract at 8
+    and K8 at its product shapes at batches 1 and 8 (timed at 8).  Returns
+    the request's row and the launch counts of ``update`` and the
+    request."""
+    from mlic_tpu_torch.codec import Codec
+    from mlic_tpu_torch.ops import _build
+    _build.reset_launch_counts()
+    model = seeded_model(MODEL, "bfloat16", depthwise=False)
+    codec = Codec(model, n_lanes=N_LANES, device="cuda")
+    codec.update()
+    rows = serve(codec, frames[:1], DENSE_S_LABEL, model.cfg)
+    counts = _build.launch_counts()
+    contracts.append(batch_contract_phase(codec, frames[0], DENSE_S_LABEL))
+    k8_all += k8_cases(codec, frames[0], DENSE_S_LABEL, timed_at=(BATCH,),
+                       batches=K8_PUBLISHED_BATCHES)
+    return {"rows": rows, "launches": counts}
+
+
+def published_path(frames, k8_all: list, contracts: list) -> dict:
+    """Path 14.  Dense MLICPP_S (``dense_s_request``); then dense
+    MLICPP_L under ``bfloat16``: its seeded weights written as a reference
+    checkpoint (``reference_checkpoint``), converted by ``python -m
+    mlic_tpu_torch.tools.convert_reference_checkpoint --dense --strict``
+    in a subprocess, read by ``weights.load_checkpoint`` bit-equal to the
+    weights written and loaded strictly; ``Codec.update`` at 512 lanes
+    (no fallback), PUBLISHED_REQUESTS requests of batches of 8, each
+    bit-exact with the launches the configuration gives, every coding
+    kernel launched and K5 not; one more request whose device-side launch
+    counts equal the host's; a profile (device busy ms, idle share); the
+    batch contract at 8 and K8 at every product shape at batches 1 and 8
+    against its chain oracle (timed at 8).  Returns the launch counts."""
+    import torch
+
+    from mlic_tpu_torch.codec import Codec
+    from mlic_tpu_torch.models.registry import get_model
+    from mlic_tpu_torch.ops import _build
+    from mlic_tpu_torch.weights import load_checkpoint
+    t_path = time.perf_counter()
+    dense_s = dense_s_request(frames, k8_all, contracts)
+    model = get_model(PUBLISHED_MODEL, transform_dtype="bfloat16",
+                      depthwise=False)
+    with tempfile.TemporaryDirectory() as d:
+        src = os.path.join(d, "mlicpp_l_dense.pth.tar")
+        dst = os.path.join(d, "mlicpp_l_dense.pt")
+        want = reference_checkpoint(model, src)
+        cmd = [sys.executable, "-m",
+               "mlic_tpu_torch.tools.convert_reference_checkpoint",
+               "--torch-ckpt", src, "--model", PUBLISHED_MODEL, "--dense",
+               "--strict", "--out", dst]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                              timeout=600)
+        cli_s = time.perf_counter() - t0
+        if proc.returncode:
+            raise AssertionError(f"converter CLI failed ({proc.returncode})"
+                                 f": {proc.stderr[-3000:]}")
+        state = load_checkpoint(dst)
+    if sorted(state) != sorted(want) \
+            or not all(torch.equal(state[k], want[k]) for k in want):
+        raise AssertionError("path 14: the converted weights differ from "
+                             "the weights written")
+    model.load_state_dict(state, strict=True)
+    cfg = model.cfg
+    _build.reset_launch_counts()
+    codec = Codec(model, n_lanes=N_LANES, device="cuda")
+    t0 = time.perf_counter()
+    codec.update()
+    update_s = time.perf_counter() - t0
+    if not codec.parametric or not codec.analytic_enc_rows:
+        raise AssertionError(f"{PUBLISHED_LABEL}: Codec.update took a "
+                             "fallback")
+    in_update = _build.launch_counts()
+    rows = serve(codec, [frames[r % len(frames)]
+                         for r in range(PUBLISHED_REQUESTS)],
+                 PUBLISHED_LABEL, cfg)
+    counts = _build.launch_counts()
+    missing = [k for k, v in counts.items()
+               if v <= 0 and k != "fused_block_tail"]
+    if missing or counts["fused_block_tail"] \
+            or not (in_update["select_rows"] and in_update["eval_cdf"]):
+        raise AssertionError(f"path 14: launches {counts}, in update "
+                             f"{in_update}")
+
+    def request():
+        enc = codec.compress(frames[0])
+        return codec.decompress(enc["strings"], enc["shape"])
+    want_launches = request_launches(cfg)
+    _, host = device_proof(request, f"{PUBLISHED_LABEL} request",
+                           {k: v for k, v in want_launches.items() if v})
+    check_request_launches(host, cfg, f"{PUBLISHED_LABEL} device proof")
+    prof = profile_request(codec, frames[0],
+                           {"compress": rows[-1]["encode_ms"],
+                            "decompress": rows[-1]["decode_ms"]},
+                           label="profile_published_L")
+    contracts.append(batch_contract_phase(codec, frames[0], PUBLISHED_LABEL))
+    k8_all += k8_cases(codec, frames[0], PUBLISHED_LABEL, timed_at=(BATCH,),
+                       batches=K8_PUBLISHED_BATCHES)
+    out = {"model": PUBLISHED_LABEL, "depthwise": cfg.depthwise,
+           "weights": "seeded, written in the reference's format, "
+                      "converted by the port's CLI",
+           "parameters": sum(t.numel() for t in state.values()),
+           "converter_cli_s": cli_s,
+           "converter_stdout": proc.stdout.strip()[-400:],
+           "transform_dtype": "bfloat16", "lanes": N_LANES,
+           "update_s": update_s, "launches_in_update": in_update,
+           "launches": counts, "launches_a_request": want_launches,
+           "requests": rows,
+           "device_busy_ms": {p: prof[p]["device_busy_ms"] for p in prof},
+           "idle_share": {p: prof[p]["idle_share"] for p in prof},
+           "dense_s": dense_s, "path_s": time.perf_counter() - t_path}
+    print(json.dumps({"published_path": out}), flush=True)
+    del codec, model
+    return {"published_L": counts, "dense_S": dense_s["launches"]}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5069,6 +5272,7 @@ def main(argv=None) -> int:
     l_train_counts = l_train_path(l_counts.pop("state"))
     sd_counts = sd_path(frames, l_counts["g_s_ms"], k8_all, contracts)
     sd_train_counts = sd_freeze_path()
+    pub_counts = published_path(frames, k8_all, contracts)
     scale_counts = scale_out_path(state, model, codec, frames)
     kernels.append(k8_row(k8_all, counts))
     hashed["L_first_batch"] = l_counts["first_batch"]
@@ -5097,6 +5301,8 @@ def main(argv=None) -> int:
                                  "train_small_decoder_frozen":
                                      sd_train_counts[k["name"]],
                                  "scale_out": scale_counts[k["name"]],
+                                 **{p: c[k["name"]]
+                                    for p, c in pub_counts.items()},
                                  "last_modules": last_counts[k["name"]]}
         at_l = [r for r in l_counts["kernels"] if r["name"] == k["name"]]
         if at_l:

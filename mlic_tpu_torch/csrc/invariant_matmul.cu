@@ -47,7 +47,7 @@
 //
 //  * Halo gather (the 5x5 reprojections of the entropy path, f32; the
 //    dense encoder's 3x3 convolutions, bf16, strides 1 and 2): a block
-//    computes 16 output columns x 4, 8 or 16 rows by 64 or 96 channels,
+//    computes 16 output columns x 4, 8 or 16 rows by 32, 64 or 96 channels,
 //    a thread TM consecutive columns of one row.  A K tile is whole
 //    channels, each staged once as its input patch (the block's rows and
 //    columns plus the window's halo), so each input pixel is copied once a
@@ -885,8 +885,12 @@ int launch_bytes(const Problem& p, cudaStream_t stream) {
   return 0;
 }
 
-// The column tile: 64 or 96 where N is a multiple of it, else 0.
-int tile_n(int n) { return n % 64 == 0 ? 64 : (n % 96 == 0 ? 96 : 0); }
+// The column tile: 64, 96 or 32, the first that divides N, else 0.  The
+// widths of the configurations (32, 64, 96, 128, 160, 192, 256, 320) all
+// have one.
+int tile_n(int n) {
+  return n % 64 == 0 ? 64 : (n % 96 == 0 ? 96 : (n % 32 == 0 ? 32 : 0));
+}
 
 // 128 rows where the group then has two blocks an SM of 132, else 64
 bool tall(long long blocks_of_128) { return blocks_of_128 >= 2 * 132; }
@@ -895,7 +899,9 @@ bool tall(long long blocks_of_128) { return blocks_of_128 >= 2 * 132; }
 // The paths and their shapes, one rule for valid() and launch():
 //  * bytes: K <= kByteK with C's m axis contiguous (the weights fit 48 KB);
 //  * halo: window 5 of stride 1 (f32) or window 3 of stride 1 or 2 (bf16),
-//    NCHW output, C a multiple of CB and N of a column tile;
+//    NCHW output, C a multiple of CB and N of a column tile (tile_n, for
+//    both types).  A 3x3 K tile is CB = 2 whole channels (BK 18), so bf16
+//    needs an even C_in: every configuration's g_a and h_a has one;
 //  * tiles: dense and the other f32 gathers (windows 1, 3, 5).
 // bf16 takes the byte path and the halo gather of window 3 only: the
 // analysis transforms' products.
@@ -909,23 +915,24 @@ bool takes_halo(const Problem& p) {
   return w == (p.bf16 ? 3 : 5) &&
          (p.stride == 1 || (p.bf16 && p.stride == 2)) &&
          p.c_s[2] == 1 && p.groups1 == 1 && p.k % bk == 0 &&
-         (p.bf16 ? p.n % 64 == 0 : tile_n(p.n) > 0);
+         tile_n(p.n) > 0;
 }
 
 template <typename T, int W, int S>
 int launch_halo_tiles(const Problem& p, cudaStream_t s) {
   constexpr int BK = W * W * ((16 + W * W - 1) / (W * W));
-  const int bn = sizeof(T) == 2 ? 64 : tile_n(p.n);
+  const int bn = tile_n(p.n);
   // blocks of 128 and of 256 outputs (8 and 16 rows of 16)
   const long long cols = static_cast<long long>(p.groups0) *
                          ((p.width - 1) / S / 16 + 1) * (p.n / bn);
   const long long per_128 = cols * ((p.height - 1) / S / 8 + 1);
   const long long per_256 = cols * ((p.height - 1) / S / 16 + 1);
-  if constexpr (sizeof(T) == 4)
-    if (bn == 96)
-      return tall(per_128)
-                 ? launch_halo<T, Tile<128, 96, 8, 6, BK>, W, S>(p, s)
-                 : launch_halo<T, Tile<64, 96, 4, 6, BK>, W, S>(p, s);
+  if (bn == 96)
+    return tall(per_128) ? launch_halo<T, Tile<128, 96, 8, 6, BK>, W, S>(p, s)
+                         : launch_halo<T, Tile<64, 96, 4, 6, BK>, W, S>(p, s);
+  // N 32 or 160 (dense MLICPP_TINY's h_a, dense MLICPP_S's g_a.out): one
+  // simple tile of 64 x 32, 4 x 2 a thread
+  if (bn == 32) return launch_halo<T, Tile<64, 32, 4, 2, BK>, W, S>(p, s);
   if constexpr (S == 1)
     if (tall(per_256))
       return launch_halo<T, Tile<256, 64, 8, 8, BK>, W, S>(p, s);
@@ -947,7 +954,7 @@ int launch_gather(const Problem& p, cudaStream_t s) {
 // SM, else 128 where it does, else 64; any other one 64 rows.
 int launch_dense(const Problem& p, cudaStream_t s) {
   const int bn = tile_n(p.n);
-  if (bn == 0)
+  if (bn < 64)
     return p.m >= 128 ? launch_tiles<Tile<128, 32, 8, 2, 16>, 0>(p, s)
                       : launch_tiles<Tile<32, 32, 2, 2, 64>, 0>(p, s);
   const long long cols = static_cast<long long>(p.groups0) * p.groups1 *

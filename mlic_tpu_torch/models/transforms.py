@@ -13,9 +13,11 @@ whose reductions cuDNN was seen to order by the batch on the H100
 (``tools.batch_contract``'s hooks, at batches 8 to 128 of MLICPP_S,
 MLICPP_L and the small decoder) are marked ``invariant``, which runs them
 through ``ops/invariant_matmul`` (K8 when coding on the card): the 1x1
-convolutions over the image's three channels, and in the dense encoder
-(the small decoder's) the convolutions at the latent's resolution, g_a's
-last and every one of h_a.
+convolutions over the image's three channels, and in a dense encoder (the
+small decoder's, and every configuration built with ``depthwise=False``)
+every 3x3 convolution from g_a's last stage on: the two residual blocks
+at an eighth of the image's size (dense MLICPP_S ordered their sums by
+the batch at batch 8), g_a's last and every one of h_a.
 """
 
 from __future__ import annotations
@@ -51,7 +53,9 @@ class AnalysisTransform(nn.Module):
         if dw:
             self.rbs0.conv1.dw.point.invariant = True
         else:
-            self.out.conv.invariant = True
+            for m in (self.rbs2.conv1, self.rbs2.conv2, self.rb2.conv1,
+                      self.rb2.conv2, self.out):
+                m.conv.invariant = True
 
     def forward(self, x):
         if self.dtype is not None:

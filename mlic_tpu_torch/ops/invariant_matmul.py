@@ -31,9 +31,16 @@ any other device (the meta device of a FLOP       the batched PyTorch op
 count, ``tools.macs``)
 ================================================  ==========================
 
+bfloat16 takes two shapes, the analysis convolutions': a product of K
+at most 4 (g_a's 1x1 convolutions over the image's three channels), and a
+3x3 "SAME" convolution of stride 1 or 2 whose output channels N are a
+multiple of 32, 64 or 96 and whose input channels are even (the dense
+encoder's g_a.out and h_a at every width of the configurations: N 32,
+96, 160, 192, 320).  Everything else is float32.
+
 K8 never gives way to the plain version: a shape or type it does not
 take (its C launch function's ``valid``: a convolution window other than
-1, 3 or 5, say, or bfloat16 outside the analysis convolutions), a failed
+1, 3 or 5, say, or bfloat16 outside the two shapes above), a failed
 build or a failed launch raises.  ``ROUTE`` other than "auto" forces one route
 ("kernel", "batched" or "plain") for every call: the smoke run sets it to
 time and check K8 against the other two.

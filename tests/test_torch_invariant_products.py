@@ -263,7 +263,6 @@ def test_coding_path_products_all_dispatch(tiny, small_decoder, monkeypatch):
     from the configuration (``chip_smoke.k8_per_direction``,
     ``k8_in_analysis``) gives; the analysis transforms mark the
     convolutions the card ordered by the batch."""
-    import chip_smoke
     model = tiny
     if small_decoder:
         model = get_model("MLICPP_TINY", small_decoder=True)
@@ -280,10 +279,35 @@ def test_coding_path_products_all_dispatch(tiny, small_decoder, monkeypatch):
         f"{g}_{i}.reprojection" for g in ("ginter", "gintra")
         for i in range(1, S)])
     if small_decoder:
-        assert marked == ["g_a.out.conv", "g_a.rbs0.skip"] + [
-            f"h_a.c{i}.conv" for i in range(5)]
+        assert marked == DENSE_ENCODER_MARKS
     else:
         assert marked == ["g_a.rbs0.conv1.dw.point", "g_a.rbs0.skip"]
+    _check_dispatch_counts(model, monkeypatch)
+
+
+# a dense encoder's convolutions that the card ordered by the batch: g_a's
+# 1x1 skip over the image, every 3x3 from g_a's last stage on
+DENSE_ENCODER_MARKS = sorted(
+    ["g_a.out.conv", "g_a.rbs0.skip"]
+    + [f"g_a.{b}.conv{i}.conv" for b in ("rb2", "rbs2") for i in (1, 2)]
+    + [f"h_a.c{i}.conv" for i in range(5)])
+
+
+def test_dense_encoder_products_all_dispatch(monkeypatch):
+    """Dense MLICPP_TINY (``depthwise=False``) marks the small decoder's
+    encoder convolutions and dispatches as many products a direction as
+    the smoke run's count gives."""
+    model = get_model("MLICPP_TINY", depthwise=False)
+    model.load_state_dict(init_params(model, torch.Generator().manual_seed(0)))
+    marked = sorted(n for n, m in model.named_modules()
+                    if getattr(m, "invariant", False)
+                    and n.startswith(("g_a.", "h_a.")))
+    assert marked == DENSE_ENCODER_MARKS
+    _check_dispatch_counts(model, monkeypatch)
+
+
+def _check_dispatch_counts(model, monkeypatch):
+    import chip_smoke
     calls = {"n": 0}
     dispatch = im._dispatch
 

@@ -1,6 +1,7 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, its
-entry points default to CUDA and refuse to fall back to the CPU, and its
-kernel wrappers run their plain versions only for CPU tensors."""
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+the JAX package's root ``tools/``), its entry points default to CUDA and
+refuse to fall back to the CPU, and its kernel wrappers run their plain
+versions only for CPU tensors."""
 
 import os
 import subprocess
@@ -14,7 +15,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BLOCKED_IMPORTS = r"""
 import importlib, pkgutil, sys
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
-           "mlic_tpu")
+           "mlic_tpu", "tools")
 
 class Block:
     def find_spec(self, name, path=None, target=None):
@@ -51,7 +52,9 @@ def test_port_imports_without_jax():
                  "analysis.compare", "analysis.cache", "tools.bdrate",
                  "tools.rd_curve", "tools.jpeg_anchor", "tools.profile_codec",
                  "tools.profile_modules", "tools.microbench", "tools.macs",
-                 "ops.invariant_matmul", "tools.batch_contract"):
+                 "ops.invariant_matmul", "tools.batch_contract",
+                 "tools.convert_reference_checkpoint",
+                 "tools.make_bench_ckpt"):
         assert f"mlic_tpu_torch.{name}" in names
 
 
