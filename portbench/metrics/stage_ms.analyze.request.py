@@ -1,0 +1,12 @@
+"""The transforms in the request loop: the encoder's g_a, h_a and z
+rounding a request (``analyze``).
+
+Median ms over the traced run's staged batches
+(``Codec.compress/decompress(timings=...)``; each stage ends in a
+synchronize)."""
+
+from portbench.stages import median_ms
+
+
+def read(obs):
+    return median_ms(obs, ("compress.analyze",))
