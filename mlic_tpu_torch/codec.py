@@ -66,6 +66,12 @@ TPU round trips of minutes, and on the card a cold ``update`` takes tens
 of milliseconds, so the port keeps none and a failed check is retried by
 the next ``update``.
 
+A device-path call records its spans (``spans.py``: the call, its stages
+with CUDA events at their bounds, the slice loop's phases, the waits)
+into ``spans.PROFILED`` while ``torch.profiler`` runs; otherwise it
+records nothing and makes no event.  ``update`` and a codec's first
+calls record their seconds as set-up (``spans.SETUP``) always.
+
 Variable-bitrate models code at a gain level ``s`` (or a continuous
 ``inputscale``): the gain scales the symbols and the rows on the device,
 and under a variable-rate bottleneck the level's z step selects
@@ -83,6 +89,7 @@ import warnings
 import numpy as np
 import torch
 
+from mlic_tpu_torch import spans
 from mlic_tpu_torch.device import resolve_device
 from mlic_tpu_torch.entropy import parametric
 from mlic_tpu_torch.entropy.cdf import get_scale_table
@@ -261,6 +268,20 @@ class Codec:
         self._zqs_cache = {}        # (s, inputscale) -> z step
         self._words_bucket = 0      # speculative download lengths,
         self._esc_bucket = 0        # ratcheted (compress_end)
+        self._serial = spans.codec_serial()  # its spans and set-up carry it
+        self._calls = [0, 0]        # encode and decode calls: span ids
+        self._first = {"compress_begin", "compress_end", "decompress"}
+
+    def _recorder(self, name: str, call: int, prefix: str):
+        """A ``spans.Recorder`` of call ``name`` if spans are recorded,
+        else None."""
+        return spans.recorder(name, call, prefix, self.device, self._serial)
+
+    def _first_call(self, name: str, t0: float) -> None:
+        """The set-up seconds of this codec's first call ``name``."""
+        if name in self._first:
+            self._first.remove(name)
+            spans.setup("setup.first_call", t0, self._serial)
 
     @torch.no_grad()
     def update(self, scale_table: np.ndarray | None = None,
@@ -272,6 +293,7 @@ class Codec:
         its tables keeps them; returns whether it built them."""
         if self._gc is not None and not force:
             return False
+        t0 = time.perf_counter()
         st = get_scale_table() if scale_table is None else scale_table
         self._gc = GaussianConditionalTables.create(st)
         self._x.tables = (self._gc.quantized_cdf, self._gc.cdf_length,
@@ -280,6 +302,7 @@ class Codec:
         self._scale_table, self._gauss = st, None
         if self.backend == "device":
             self._update_device()
+        spans.setup("setup.update", t0, self._serial)
         return True
 
     def _checked_table(self, params, lengths) -> tuple:
@@ -424,15 +447,19 @@ class Codec:
                 "large images to keep decode scans short.", stacklevel=4)
             self._warned_auto_width = True
 
-    def _stage(self, timings, name: str, t: float) -> float:
-        """With a ``timings`` dict, wait for the device and record the ms
-        since ``t`` under ``name``; returns the start of the next stage."""
-        if timings is None:
-            return t
-        self._sync()
-        now = time.perf_counter()
-        timings[name] = (now - t) * 1e3
-        return now
+    def _stage(self, timings, name: str, t: float, rec=None) -> float:
+        """The end of stage ``name``: with a ``timings`` dict, wait for the
+        device and record the ms since ``t`` under ``name``; with a
+        ``spans.Recorder``, close the stage's span.  Returns the start of
+        the next stage."""
+        if timings is not None:
+            self._sync()
+            now = time.perf_counter()
+            timings[name] = (now - t) * 1e3
+            t = now
+        if rec is not None:
+            rec.stage(name)
+        return t
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -501,6 +528,9 @@ class Codec:
                              f"backend; this codec is {self.backend!r}")
         t0 = time.perf_counter()
         self._require_tables()
+        call = self._calls[0]
+        self._calls[0] += 1
+        rec = self._recorder("call.compress_begin", call, "encode.")
         t = time.perf_counter()
         x = self._images(x)
         if self.n_lanes is None:
@@ -512,10 +542,10 @@ class Codec:
         z_qs = self._z_qs_for(s, inputscale)
         tables = self._tables_for(z_qs)
         y, z_symbols = self.model.analyze(x, z_qs)
-        t = self._stage(timings, "analyze", t)
-        y_hat, sym32, idx = self.model.codec_encode_pass(y, z_symbols, scale,
-                                                         z_qs)
-        t = self._stage(timings, "encode_pass", t)
+        t = self._stage(timings, "analyze", t, rec)
+        y_hat, sym32, idx = self.model.codec_encode_pass(
+            y, z_symbols, scale, z_qs, None if rec is None else rec.step)
+        t = self._stage(timings, "encode_pass", t, rec)
         b, zh, zw, _ = z_symbols.shape
         z_flat = z_symbols.reshape(b, -1)
         comp = encode_rans_v4(
@@ -536,9 +566,13 @@ class Codec:
             parts = host
             done = torch.cuda.Event()
             done.record()
-        self._stage(timings, "rans_encode", t)
+        self._stage(timings, "rans_encode", t, rec)
+        if rec is not None:
+            rec.end()
+        if self._first:
+            self._first_call("compress_begin", t0)
         return {"comp": comp, "host": parts, "done": done, "y_hat": y_hat,
-                "shape": (zh, zw), "z_qs": z_qs, "t0": t0}
+                "shape": (zh, zw), "z_qs": z_qs, "t0": t0, "call": call}
 
     @torch.no_grad()
     def compress_end(self, h: dict, timings: dict | None = None) -> dict:
@@ -550,35 +584,51 @@ class Codec:
         Returns ``compress``'s result; ``x_hat`` may still be in flight.
         A ``timings`` dict gets the host's stages: assemble, z_encode (v3)
         and synthesize."""
-        t = time.perf_counter()
+        t0 = t = time.perf_counter()
+        rec = self._recorder("call.compress_end", h["call"], "encode.")
         if h["done"] is not None:
+            if rec is not None:
+                rec.step("wait")
             h["done"].synchronize()
+            if rec is not None:
+                rec.step()
         host = [p.numpy() for p in h["host"]]
-        streams = self._assemble(h["comp"], *host[:3])
-        t = self._stage(timings, "assemble", t)
+        streams = self._assemble(h["comp"], *host[:3], rec)
+        t = self._stage(timings, "assemble", t, rec)
         zh, zw = h["shape"]
         if self.unified_z:
             z_strings = [b""] * len(streams)
         else:
             z_strings = self._encode_z(host[-1].reshape(
                 len(streams), zh, zw, -1), h["z_qs"])
-            t = self._stage(timings, "z_encode", t)
+            t = self._stage(timings, "z_encode", t, rec)
         y_hat = h["y_hat"]
         x_hat = self.model.synthesize(y_hat) if self.encode_recon else None
-        self._stage(timings, "synthesize", t)
+        self._stage(timings, "synthesize", t,
+                    rec if self.encode_recon else None)
+        if rec is not None:
+            rec.end()
+        if self._first:
+            self._first_call("compress_end", t0)
         return {"strings": [streams, z_strings],
                 "shape": h["shape"], "y_hat": y_hat, "x_hat": x_hat,
                 "cost_time": time.perf_counter() - h["t0"]}
 
-    def _assemble(self, comp: dict, counts, buf, ebuf) -> list:
+    def _assemble(self, comp: dict, counts, buf, ebuf, rec=None) -> list:
         """The device encoder's streams from the downloaded counts and
-        speculative prefixes, the rest fetched where they fall short."""
+        speculative prefixes, the rest fetched where they fall short (in
+        ``rec``'s step ``fetch``)."""
         img_n, ecount = np.split(counts.astype(np.int64), 2)
         n_w, n_e = int(img_n.sum()), int(ecount.sum())
+        fetch = rec is not None and (n_w > len(buf) or n_e > len(ebuf))
+        if fetch:
+            rec.step("fetch")
         if n_w > len(buf):
             buf = comp["buf"][:n_w].cpu().numpy()
         if n_e > len(ebuf):
             ebuf = comp["ebuf"][:n_e].cpu().numpy()
+        if fetch:
+            rec.step()
         self._words_bucket = max(self._words_bucket, min(
             _download_bucket(n_w), comp["buf"].numel()))
         self._esc_bucket = max(self._esc_bucket, min(
@@ -661,6 +711,9 @@ class Codec:
             return out
         if self._gauss is None:
             self._update_device()
+        call = self._calls[1]
+        self._calls[1] += 1
+        rec = self._recorder("call.decompress", call, "decode.")
         t = time.perf_counter()
         words_t, img_begin_t, esc_t, esc_begin_t = self._parse(y_strings,
                                                               v3)
@@ -668,24 +721,31 @@ class Codec:
         scale = self._scale_for(s, inputscale)
         z_qs = self._z_qs_for(s, inputscale)
         tables = self._tables_for(z_qs)
-        t = self._stage(timings, "parse", t)
+        t = self._stage(timings, "parse", t, rec)
+        step = None if rec is None else rec.step
         if v3:
             z = self._decode_z_host(z_strings, z_qs, zh, zw)
-            t = self._stage(timings, "z_decode", t)
+            t = self._stage(timings, "z_decode", t, rec)
             y_hat = self.model.codec_device_pass(
                 self._to_device(z), words_t, img_begin_t, tables,
                 self.n_lanes, self.n_steps, self.z_rows_base - 1, esc_t,
-                esc_begin_t, scale, z_qs)
+                esc_begin_t, scale, z_qs, step)
         else:
             y_hat = self.model.codec_device_pass_v4(
                 int(zh), int(zw), words_t, img_begin_t, tables,
                 self.n_lanes, self.n_steps, self.z_steps_row,
-                self.z_rows_base, esc_t, esc_begin_t, scale, z_qs)
-        t = self._stage(timings, "entropy_decode", t)
+                self.z_rows_base, esc_t, esc_begin_t, scale, z_qs, step)
+        t = self._stage(timings, "entropy_decode", t, rec)
         x_hat = self.model.synthesize(y_hat)
-        self._stage(timings, "synthesize", t)
+        self._stage(timings, "synthesize", t, rec)
         if wait:
+            if rec is not None:
+                rec.step("wait")
             self._sync()
+        if rec is not None:
+            rec.end()
+        if self._first:
+            self._first_call("decompress", t0)
         return {"x_hat": x_hat, "y_hat": y_hat,
                 "cost_time": time.perf_counter() - t0}
 
@@ -785,12 +845,15 @@ class Codec:
         it = iter(batches)
         x = next(it, None)
         h = None if x is None else self.compress_begin(x, s, inputscale)
-        pending = None          # (enc, dec, done event)
+        pending = None          # (enc, dec, done event, call id)
         while h is not None:
             x = next(it, None)
             h_next = None if x is None else self.compress_begin(x, s,
                                                                 inputscale)
             enc = self.compress_end(h)
+            call = h.get("call")            # None: a ShardedCodec's handle
+            if call is not None:
+                self._calls[1] = call       # the batch's decode: its id
             dec = self.decompress(enc["strings"], enc["shape"], s,
                                   inputscale, wait=False)
             done = None
@@ -799,14 +862,17 @@ class Codec:
                 done.record()
             if pending is not None:
                 yield self._handed_out(pending, wait)
-            pending = (enc, dec, done)
+            pending = (enc, dec, done, call)
             h = h_next
         if pending is not None:
             yield self._handed_out(pending, wait)
 
-    @staticmethod
-    def _handed_out(pending, wait: bool):
-        enc, dec, done = pending
+    def _handed_out(self, pending, wait: bool):
+        enc, dec, done, call = pending
         if wait and done is not None:
+            rec = (None if call is None else
+                   self._recorder("stream.wait", call, "stream."))
             done.synchronize()
+            if rec is not None:
+                rec.end()
         return enc, dec

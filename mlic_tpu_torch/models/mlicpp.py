@@ -220,21 +220,30 @@ class MLICPlusPlus(nn.Module):
         slices.append(y_hat_slice + ckbd_nonanchor(self._lrp(
             "lrp_nonanchor", idx, st["hyper_means"], slices, y_hat_slice)))
 
-    def _slices(self, hyper_params, phase):
+    def _slices(self, hyper_params, phase, step=None):
         """The slice loop that training and every coding path share
         (mlicpp.py:186-215, 647-672).  ``phase(idx, squeeze, unsqueeze,
         scales, means)`` returns the reconstructed (unsqueezed) half of
         slice ``idx``.  The step methods of the host-coded backends run the
-        same phase helpers one phase at a time."""
+        same phase helpers one phase at a time.  ``step``, where a codec
+        records spans (``spans.Recorder.step``), is called as each phase
+        starts (``slice<k>.anchor``, ``slice<k>.nonanchor``) and with
+        None after the last."""
         st = self._slice_state(hyper_params)
         for idx in range(self.cfg.slice_num):
+            if step is not None:
+                step(f"slice{idx}.anchor")
             scales, means = self._anchor_phase(st, idx)
             slice_anchor = phase(idx, ckbd_anchor_squeeze,
                                  ckbd_anchor_unsqueeze, scales, means)
+            if step is not None:
+                step(f"slice{idx}.nonanchor")
             scales, means = self._nonanchor_phase(st, idx, slice_anchor)
             slice_nonanchor = phase(idx, ckbd_nonanchor_squeeze,
                                     ckbd_nonanchor_unsqueeze, scales, means)
             self._finish_slice(st, idx, slice_nonanchor)
+        if step is not None:
+            step(None)
         return torch.cat(st["y_hat_slices"], 1)
 
     # --------------------------- training ------------------------------
@@ -368,12 +377,14 @@ class MLICPlusPlus(nn.Module):
         sym = to_nchw(symbols.reshape(b, h, w2, c))
         return unsqueeze(self._phase_recon(sym, mu_sq, sc_sq, scale))
 
-    def codec_encode_pass(self, y, z_symbols, scale=1.0, z_qs=1.0):
+    def codec_encode_pass(self, y, z_symbols, scale=1.0, z_qs=1.0,
+                          step=None):
         """Encode pass (mlicpp.py:607): y [B,h,w,M] and z_symbols NHWC ->
         (y_hat NHWC, symbols int32 [B, total], indexes int32 [B, total]),
         the per-phase arrays raveled NHWC and concatenated in coding
         order; symbols ``round((y - mu) * scale)``, indexes at ``sigma *
-        scale``, z reconstructed at step ``z_qs``."""
+        scale``, z reconstructed at step ``z_qs``.  ``step`` as
+        ``_slices`` takes it."""
         C = self.cfg.slice_ch
         y = to_nchw(y)
         hyper_params = self.h_s(self._z_hat(to_nchw(z_symbols), z_qs))
@@ -386,7 +397,7 @@ class MLICPlusPlus(nn.Module):
             idxs.append(nhwc_flat(indexes))
             return unsqueeze(self._phase_recon(cand, mu_sq, sc_sq, scale))
 
-        y_hat = self._slices(hyper_params, phase)
+        y_hat = self._slices(hyper_params, phase, step)
         return to_nhwc(y_hat), torch.cat(syms, 1), torch.cat(idxs, 1)
 
     # ---- the host-coded backends: one phase at a time (mlicpp.py:279-455)
@@ -463,7 +474,8 @@ class MLICPlusPlus(nn.Module):
 
     def codec_device_pass(self, z_symbols, words, img_begin, tables,
                           n_lanes: int, n_steps: int, pad_row: int,
-                          esc_values, esc_begin, scale=1.0, z_qs=1.0):
+                          esc_values, esc_begin, scale=1.0, z_qs=1.0,
+                          step=None):
         """Format-v3 decode (mlicpp.py:457): ``z_symbols`` int32 NHWC,
         decoded on the host from each image's z string, then every phase of
         the stream is a y phase, decoded as in ``_device_pass_from_z``.
@@ -471,17 +483,17 @@ class MLICPlusPlus(nn.Module):
         ``codec_device_pass_v4``; ``pad_row`` the row the encoder padded
         each phase with, the last Gaussian row (the JAX package counts the
         rows of its Gaussian-only tables there).  Returns y_hat [B,h,w,M],
-        NHWC."""
+        NHWC.  ``step`` as ``_slices`` takes it."""
         init, decode = make_decoder(words, n_steps, esc_values, esc_begin,
                                     n_lanes)
         return to_nhwc(self._device_pass_from_z(
             to_nchw(z_symbols.to(torch.int32)), init(img_begin), decode,
-            tables, n_lanes, scale, z_qs, pad_row, n_steps))
+            tables, n_lanes, scale, z_qs, pad_row, n_steps, step))
 
     def codec_device_pass_v4(self, zh: int, zw: int, words, img_begin, tables,
                              n_lanes: int, n_steps: int, z_steps_row: int,
                              z_rows_base: int, esc_values, esc_begin,
-                             scale=1.0, z_qs=1.0):
+                             scale=1.0, z_qs=1.0, step=None):
         """Format-v4 decode (mlicpp.py:496): z from the stream's leading
         phases by integer-row bisection over ``tables['cdf_rows']`` rows
         >= ``z_rows_base`` (the rows of step ``z_qs``), then the y phases
@@ -490,7 +502,9 @@ class MLICPlusPlus(nn.Module):
 
         words: int16 (uint16 bits), all images' blocks; img_begin int32 [B];
         esc_values/esc_begin: the escape side channel.  Returns y_hat
-        [B,h,w,M], NHWC; ``synthesize`` turns it into the image."""
+        [B,h,w,M], NHWC; ``synthesize`` turns it into the image.
+        ``step`` as ``_slices`` takes it, called with ``z`` too, for the z
+        phase."""
         N = self.cfg.N
         b = img_begin.shape[0]
         dev = words.device
@@ -500,19 +514,23 @@ class MLICPlusPlus(nn.Module):
         z_n = zh * zw * N
         z_rows = z_rows_base + torch.arange(z_n, dtype=torch.int32,
                                             device=dev) % N
+        if step is not None:
+            step("z")
         ordered = phase_order(z_rows[None].expand(b, z_n), n_lanes,
                               z_rows_base - 1).contiguous()
         carry, z_sym = decode(carry, ordered, tables, n_steps_row=z_steps_row)
         steps = ordered.shape[0]
         z_sym = (z_sym.reshape(steps, b, n_lanes).permute(1, 0, 2)
                  .reshape(b, -1)[:, :z_n].reshape(b, zh, zw, N))
+        if step is not None:
+            step(None)
         return to_nhwc(self._device_pass_from_z(
             to_nchw(z_sym), carry, decode, tables, n_lanes, scale, z_qs,
-            z_rows_base - 1, n_steps))
+            z_rows_base - 1, n_steps, step))
 
     def _device_pass_from_z(self, z_symbols, carry, decode, tables,
                             n_lanes: int, scale, z_qs, pad_row: int,
-                            n_steps: int):
+                            n_steps: int, step=None):
         """The y half of the device decode (mlicpp.py:537), NCHW; returns
         y_hat.  With ``tables["row_params"]`` the y phases decode
         parametrically; without (``Codec.update``'s fallback B) by an
@@ -534,4 +552,4 @@ class MLICPlusPlus(nn.Module):
                    .reshape(b, -1)[:, :mu_sq[0].numel()])
             return self._recon_flat(sym, mu_sq, sc_sq, scale, unsqueeze)
 
-        return self._slices(hyper_params, phase)
+        return self._slices(hyper_params, phase, step)

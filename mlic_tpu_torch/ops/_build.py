@@ -28,6 +28,8 @@ from pathlib import Path
 
 import torch
 
+from mlic_tpu_torch import spans
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -151,7 +153,8 @@ ORACLES = {"invariant_matmul": ("invariant_matmul_oracle_launch", [_P, _P])}
 def build(kernels=None) -> dict:
     """Compile the kernels whose libraries are missing, one ``nvcc`` per
     source, all started together.  Returns {name: seconds} of this call's
-    builds (0.0 for a library that was already there)."""
+    builds (0.0 for a library that was already there); the call's seconds
+    are the set-up span ``setup.kernels``."""
     kernels = list(KERNELS.values()) if kernels is None else list(kernels)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
@@ -178,6 +181,7 @@ def build(kernels=None) -> dict:
         os.replace(tmp, path)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    spans.setup("setup.kernels", t0)
     return secs
 
 

@@ -200,4 +200,4 @@ class ShardedCodec:
 
     # the two-deep pipeline of ``Codec``, over the shards' handles
     roundtrip_stream = Codec.roundtrip_stream
-    _handed_out = staticmethod(Codec._handed_out)
+    _handed_out = Codec._handed_out

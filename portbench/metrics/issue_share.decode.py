@@ -1,0 +1,13 @@
+"""The host's ms inside a request's ``decompress`` less ``decode.wait``,
+over the device ms of ``decode.entropy_decode`` and ``.synthesize``, in
+%: the median over the traced stretch's requests
+(``program_spans.issue_share``).  The host's ms include the time its
+launches are blocked by a full CUDA launch queue: it is the host's time
+in the call, not its free issue time."""
+
+from portbench import program_spans
+
+
+def read(obs):
+    return program_spans.issue_share(program_spans.records(obs),
+                                     ("decode",))
